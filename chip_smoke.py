@@ -3,9 +3,9 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 
-1. builds the CUDA rollout kernels from ``src/repro_torch`` (nvcc, into
-   ``build/``) and prints the build time, PyTorch/CUDA versions and the
-   card's name and power limit;
+1. builds the four CUDA sources from ``src/repro_torch`` at once (one
+   nvcc each, into ``build/``) and prints each build time and ptxas line,
+   the PyTorch/CUDA versions and the card's name and power limit;
 2. holds both rollout kernels (B1 generic, B2 specialized) and the readout
    kernel against their plain PyTorch twins on the card, on dim-256 /
    block-64 matrices (one with whole zero blocks) over {fp32, int8} x
@@ -20,9 +20,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 4. serves fp32 requests at ``PAPER_BASELINE`` (dim 800) with both kernels,
    then holds both against their twins at that shape (a ragged last
    column block);
-5. times each kernel per launch at the LARGE_1024 serve shape with CUDA
-   events, beside its plain twin, one PyTorch call computing the same
-   product, and the least time the card could take (its bound).
+6. drives the fixed-matrix multiplier path at full width on LARGE_1024's
+   matrix: ``BitplaneGemv`` (B3) on the requantized int8 states of a
+   rollout at batch 16 and 1 (== ``matvec_int_exact`` and the twin, bit
+   for bit), ``BcsrMatmul`` (B4) on fp32 and bf16 states and on integer
+   states over a unit-scale matrix (exact), ``FusedReservoir.run`` (B5)
+   over 64 steps at batch 16 (vs its twin and the fp32 B1 rollout), the
+   cross-family check of tests/test_plan.py at dim 256, and all three at
+   PAPER_BASELINE's ragged dim 800;
+5. times each kernel per launch at the LARGE_1024 shape with CUDA events
+   and the profiler, beside its plain twin, one PyTorch call computing the
+   same product (and cuSPARSE for B4), and the least time the card could
+   take (its bound); B3-B5 at batch 16 and 1.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  The last line is ``{"ok": true, "device": {...}}``.
@@ -37,6 +46,7 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -58,15 +68,26 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 FP32_FLOPS_PER_S = 67e12
 
-REPLACES = {
-    "specialized_rollout":
-        "src/repro/kernels/reservoir_rollout/specialized.py:162",
-    "reservoir_rollout":
+_ROLLOUT_CU = "src/repro_torch/kernels/reservoir_rollout/csrc/rollout.cu"
+# name -> (the Pallas kernel it replaces, its CUDA source)
+KERNELS = {
+    "specialized_rollout": (
+        "src/repro/kernels/reservoir_rollout/specialized.py:162", _ROLLOUT_CU),
+    "reservoir_rollout": (
         "src/repro/kernels/reservoir_rollout/reservoir_rollout.py:117",
-    "rollout_readout":
-        "src/repro/kernels/reservoir_rollout/specialized.py:142",
+        _ROLLOUT_CU),
+    "rollout_readout": (
+        "src/repro/kernels/reservoir_rollout/specialized.py:142", _ROLLOUT_CU),
+    "bitplane_gemv": (
+        "src/repro/kernels/bitplane_gemv/bitplane_gemv.py:55",
+        "src/repro_torch/kernels/bitplane_gemv/csrc/bitplane_gemv.cu"),
+    "bcsr_matmul": (
+        "src/repro/kernels/bcsr_matmul/bcsr_matmul.py:43",
+        "src/repro_torch/kernels/bcsr_matmul/csrc/bcsr_matmul.cu"),
+    "reservoir_step": (
+        "src/repro/kernels/reservoir_step/reservoir_step.py:44",
+        "src/repro_torch/kernels/reservoir_step/csrc/reservoir_step.cu"),
 }
-SOURCE = "src/repro_torch/kernels/reservoir_rollout/csrc/rollout.cu"
 
 
 def gpu_name_power() -> str:
@@ -81,7 +102,9 @@ def gpu_name_power() -> str:
 
 
 def maxdiff(a, b) -> float:
-    return float((a.float() - b.float()).abs().max().item())
+    if a.dtype.is_floating_point or b.dtype.is_floating_point:
+        return float((a.float() - b.float()).abs().max().item())
+    return float((a.long() - b.long()).abs().max().item())   # ints exact
 
 
 class Smoke:
@@ -89,7 +112,7 @@ class Smoke:
         self.torch = torch
         self.dev = torch.device("cuda")
         # max |kernel - twin| per kernel and mode; None until a check ran
-        self.err = {k: {"int8": None, "fp32": None} for k in REPLACES}
+        self.err = {k: {"int8": None, "fp32": None} for k in KERNELS}
         self.failures: list[str] = []
         self.kernels: dict = {}
         self.card = ""
@@ -100,21 +123,33 @@ class Smoke:
             print(f"FAIL: {what}")
 
     def note_err(self, kernel, mode, value) -> None:
-        old = self.err[kernel][mode]
+        old = self.err[kernel].get(mode)      # bf16: bcsr_matmul only
         self.err[kernel][mode] = value if old is None else max(old, value)
 
     # -- phase 1 -------------------------------------------------------------
     def build(self):
+        """Builds every kernel source at once (one nvcc each, in threads)."""
         torch = self.torch
+        from repro_torch.kernels.bcsr_matmul import bcsr_matmul
+        from repro_torch.kernels.bitplane_gemv import bitplane_gemv
         from repro_torch.kernels.reservoir_rollout import _cuda
+        from repro_torch.kernels.reservoir_step import reservoir_step
+        libs = {"rollout.cu": _cuda.LIBRARY,
+                "bitplane_gemv.cu": bitplane_gemv.LIBRARY,
+                "bcsr_matmul.cu": bcsr_matmul.LIBRARY,
+                "reservoir_step.cu": reservoir_step.LIBRARY}
         t0 = time.perf_counter()
-        _cuda.library()
-        info = _cuda.build_info()
+        with ThreadPoolExecutor(len(libs)) as pool:
+            list(pool.map(lambda lib: lib.load(), libs.values()))
         self.card = gpu_name_power()
-        print(f"build: {time.perf_counter() - t0:.2f} s ({info['path']})")
-        for line in info["log"].splitlines():
-            if "registers" in line or "Compiling entry" in line:
-                print("  ptxas:", line.strip())
+        print(f"build: {time.perf_counter() - t0:.2f} s for {len(libs)} "
+              "sources in parallel")
+        for name, lib in libs.items():
+            info = lib.build_info()
+            print(f"  {name}: {info['seconds']:.2f} s ({info['path']})")
+            for line in info["log"].splitlines():
+                if "registers" in line or "Compiling entry" in line:
+                    print("    ptxas:", line.strip())
         print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
               f"python {sys.version.split()[0]}")
         print(f"card: {self.card}")
@@ -408,18 +443,7 @@ class Smoke:
                 w_out=params.w_out, device=self.dev), reservoir_rollout_plain),
         }
 
-        def timed(fn, n):
-            fn()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(n):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            return start.elapsed_time(end) / n
-
+        timed = self.timed
         dense = params.w.dense_f32(device=self.dev)
         x = x0.clone()
         lib_step = timed(lambda: x @ dense, 200)
@@ -432,7 +456,8 @@ class Smoke:
             op = ops[name][0]
             runs[name].append(timed(lambda: op(u, x0, **kw), reps) / t_steps)
         print("per-step runs (ms):", runs)
-        self._profile(ops, u, x0, kw)
+        self._profile([lambda op=op: op(u[:16], x0, **kw)
+                       for op, _plain in ops.values()])
         for name, (op, _plain) in ops.items():
             # host side alone: the loop's enqueue time, no device sync
             torch.cuda.synchronize()
@@ -475,46 +500,354 @@ class Smoke:
                      (b * dim + dim * o + b * o) * 4,
                      2 * b * dim * o / FP32_FLOPS_PER_S)
 
-    def _profile(self, ops, u, x0, kw):
+    # -- phase 6 -------------------------------------------------------------
+    def _unit_scale(self, dim, block):
+        """tests/test_plan.py's integer matrix: amax == qmax, so scale is
+        1.0 and float and integer products meet on exact integers."""
+        from repro_torch.core.sparse import FixedMatrix
+        rng = np.random.default_rng(0)
+        q = rng.integers(-127, 128, size=(dim, dim)).astype(np.float64)
+        q[rng.random((dim, dim)) < 0.9] = 0
+        q[dim // 2:, :] = 0
+        q[0, 0] = 127
+        return FixedMatrix.compile(q, weight_bits=8, mode="csd", block=block,
+                                   rng=rng)
+
+    def _states(self, params, batch, steps, seed):
+        """Final fp32 states of an int8 B2 rollout, and their int8
+        requantization (what the int8 path multiplies)."""
+        torch = self.torch
+        from repro_torch.kernels.reservoir_rollout.specialized import (
+            SpecializedRollout)
+        cfg = params.config
+        op = SpecializedRollout(params.w.plan(), params.w_in, leak=cfg.leak,
+                                mode="int8", device=self.dev)
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        u = torch.randn((steps, batch, cfg.input_dim), generator=gen)
+        x = op(u.to(self.dev), want_states=False, want_final=True)
+        xq = torch.clamp(torch.round(x * op.smax), -op.smax - 1, op.smax)
+        return x, xq.to(torch.int8)
+
+    def _check_b3(self, op, fm, xq, tag):
+        from repro_torch.kernels.bitplane_gemv.bitplane_gemv import (
+            bitplane_gemv_plain)
+        y = op(xq)
+        twin = bitplane_gemv_plain(xq, op.digits, op.plane_mask)
+        d = max(maxdiff(y, fm.matvec_int_exact(xq)),
+                maxdiff(y, twin[:, : op.cols]))
+        self.note_err("bitplane_gemv", "int8", d)
+        self.check(d == 0.0, f"bitplane_gemv {tag}: {d:.3g}")
+        return y, d
+
+    def _check_b4(self, op, x, tag, mode, exact=None):
+        from repro_torch.kernels.bcsr_matmul.bcsr_matmul import (
+            bcsr_matmul_plain)
+        y = op(x)
+        twin = bcsr_matmul_plain(x, op.tiles, op.col_ptr, op.tile_rows,
+                                 op.rows_pad)[:, : op.shape[1]]
+        d = maxdiff(y, twin)
+        if exact is not None:
+            d = max(d, maxdiff(y, exact))
+        self.note_err("bcsr_matmul", mode, d)
+        tol = 0.0 if mode == "int8" else FP32_TOL
+        self.check(y.dtype == twin.dtype and d <= tol,
+                   f"bcsr_matmul {tag}: {d:.3g}")
+        return y, d
+
+    def _check_b5(self, fr, u, tag, against=None):
+        torch = self.torch
+        from repro_torch.kernels.reservoir_step.reservoir_step import (
+            reservoir_step_plain)
+        states = fr.run(u)
+        x = torch.zeros((u.shape[1], fr.dim), device=self.dev)
+        twin = []
+        for t in range(u.shape[0]):
+            x = reservoir_step_plain(x, fr.w, u[t], fr.w_in, leak=fr.leak)
+            twin.append(x)
+        d = maxdiff(states, torch.stack(twin))
+        self.note_err("reservoir_step", "fp32", d)
+        self.check(d <= FP32_TOL, f"reservoir_step {tag} vs twin: {d:.3g}")
+        if against is not None:
+            da = maxdiff(states, against)
+            self.check(da <= FP32_TOL, f"reservoir_step {tag} vs fp32 B1: "
+                       f"{da:.3g}")
+            return d, da
+        return d, None
+
+    def fixed_matrix(self):
+        """Phase 6: the fixed-matrix multiplier path at full width
+        (LARGE_1024's matrix, made in phase 3), through BitplaneGemv (B3),
+        BcsrMatmul (B4) and FusedReservoir (B5), each checked against its
+        twin and an exact or independent reference."""
+        torch = self.torch
+        from repro_torch.kernels.bcsr_matmul import bcsr_matmul as b4
+        from repro_torch.kernels.bcsr_matmul.ops import BcsrMatmul
+        from repro_torch.kernels.bitplane_gemv import bitplane_gemv as b3
+        from repro_torch.kernels.bitplane_gemv.ops import BitplaneGemv
+        from repro_torch.kernels.reservoir_rollout.ops import FusedRollout
+        from repro_torch.kernels.reservoir_step import reservoir_step as b5
+        from repro_torch.kernels.reservoir_step.ops import FusedReservoir
+        counted = {"bitplane_gemv": b3.bitplane_gemv,
+                   "bcsr_matmul": b4.bcsr_matmul,
+                   "reservoir_step": b5.reservoir_step}
+        for fn in counted.values():
+            fn.launches = 0
+
+        params = self.params_1024
+        cfg = params.config
+        fm = params.w
+        plan = fm.plan()
+        x, xq = self._states(params, 16, 32, seed=17)
+        self.fixed_inputs = (x, xq)
+        b3op = BitplaneGemv(plan, device=self.dev)
+        print(f"LARGE_1024 planes: {sum(plan.plane_mask)}/{plan.width} kept, "
+              f"{b3op.digits.numel()} B of digits")
+        for batch in (16, 1):
+            _y, d = self._check_b3(b3op, fm, xq[:batch], f"LARGE_1024 b{batch}")
+            print(f"  B3 BitplaneGemv int8 states b{batch}: "
+                  f"== matvec_int_exact and twin (max |diff| {d:g})")
+
+        b4op = BcsrMatmul(plan, device=self.dev)
+        print(f"LARGE_1024 BCSR: {b4op.n_tiles} tiles of {b4op.block}")
+        for batch in (16, 1):
+            _y, d = self._check_b4(b4op, x[:batch], f"fp32 b{batch}", "fp32")
+            print(f"  B4 BcsrMatmul fp32 b{batch} vs twin: {d:.3g}")
+        _y, d = self._check_b4(b4op, x.to(torch.bfloat16), "bf16 b16", "bf16")
+        print(f"  B4 BcsrMatmul bf16 b16 vs twin: {d:.3g}")
+        unit = self._unit_scale(cfg.reservoir_dim, cfg.block)
+        uop = BcsrMatmul(unit, device=self.dev)
+        for dtype in (torch.int32, torch.int8):
+            xi = xq.to(dtype)
+            _y, d = self._check_b4(uop, xi, f"unit-scale {dtype}", "int8",
+                                   exact=unit.matvec_int_dense_ref(xi))
+            print(f"  B4 BcsrMatmul {dtype} on the unit-scale matrix: "
+                  f"exact ({d:g})")
+
+        dense = fm.dense_f32(device=self.dev)
+        fr = FusedReservoir(dense, params.w_in, leak=cfg.leak,
+                            device=self.dev)
+        gen = torch.Generator(device="cpu").manual_seed(19)
+        u = torch.randn((64, 16, cfg.input_dim), generator=gen).to(self.dev)
+        b1 = FusedRollout(plan, params.w_in, leak=cfg.leak, mode="fp32",
+                          device=self.dev)(u)
+        d, da = self._check_b5(fr, u, "LARGE_1024 64 steps b16", against=b1)
+        print(f"  B5 FusedReservoir.run 64 steps b16: vs twin {d:.3g}, vs "
+              f"fp32 B1 rollout {da:.3g}")
+
+        self._cross_family()
+        self._ragged_fixed()
+        self.launches.update({k: fn.launches for k, fn in counted.items()})
+        print("phase-6 launches:", {k: self.launches[k] for k in counted})
+        for k in counted:
+            self.check(self.launches[k] > 0, f"{k} launched on phase 6")
+
+    def _cross_family(self):
+        """tests/test_plan.py's check on the card: one unit-scale plan, B3
+        == xq @ q, B4 (fp32 input) == the same, one int8 B1 step ==
+        tanh(y * recur_scale), all exact."""
+        torch = self.torch
+        from repro_torch.kernels.bcsr_matmul.ops import BcsrMatmul
+        from repro_torch.kernels.bitplane_gemv.ops import BitplaneGemv
+        from repro_torch.kernels.reservoir_rollout.ops import FusedRollout
+        fm = self._unit_scale(256, 64)
+        plan = fm.plan()
+        rng = np.random.default_rng(1)
+        xq = torch.as_tensor(rng.integers(-4, 5, size=(3, 256)),
+                             dtype=torch.int32, device=self.dev)
+        exact = fm.matvec_int_dense_ref(xq)
+        y_int, _ = self._check_b3(BitplaneGemv(plan, device=self.dev), fm, xq,
+                                  "cross-family")
+        y_f = BcsrMatmul(plan, device=self.dev)(xq.to(torch.float32))
+        fr = FusedRollout(plan, np.zeros((1, 256), np.float32), leak=1.0,
+                          mode="int8", device=self.dev)
+        got = fr(torch.zeros((1, 3, 1), device=self.dev),
+                 xq.to(torch.float32) / fr.smax)[0]
+        want = torch.tanh(y_int.to(torch.float32) * torch.tensor(
+            fr.recur_scale, dtype=torch.float32, device=self.dev))
+        ok = (torch.equal(y_int, exact)
+              and torch.equal(y_f, exact.to(torch.float32))
+              and torch.equal(got, want))
+        self.note_err("bcsr_matmul", "fp32", maxdiff(y_f, exact))
+        self.check(ok, "cross-family B3 == B4 == xq @ q, B1 == tanh(y rs)")
+        print(f"cross-family (unit scale, dim 256): exact {ok}")
+
+    def _ragged_fixed(self):
+        """PAPER_BASELINE (dim 800: 7 column blocks of 128, the last one
+        96 wide) through all three wrappers."""
+        from repro_torch.kernels.bcsr_matmul.ops import BcsrMatmul
+        from repro_torch.kernels.bitplane_gemv.ops import BitplaneGemv
+        from repro_torch.kernels.reservoir_step.ops import FusedReservoir
+        params = self.params_800
+        cfg = params.config
+        plan = params.w.plan()
+        x, xq = self._states(params, 5, 8, seed=23)
+        _y, d3 = self._check_b3(BitplaneGemv(plan, device=self.dev), params.w,
+                                xq, "PAPER_BASELINE")
+        _y, d4 = self._check_b4(BcsrMatmul(plan, device=self.dev), x,
+                                "PAPER_BASELINE fp32", "fp32")
+        fr = FusedReservoir(params.w.dense_f32(device=self.dev), params.w_in,
+                            leak=cfg.leak, device=self.dev)
+        gen = self.torch.Generator(device="cpu").manual_seed(29)
+        u = self.torch.randn((16, 5, cfg.input_dim), generator=gen)
+        d5, _ = self._check_b5(fr, u.to(self.dev), "PAPER_BASELINE")
+        print(f"PAPER_BASELINE (dim 800) B3 {d3:g}, B4 {d4:.3g}, B5 {d5:.3g} "
+              "vs twins")
+
+    # -- phase 5, the fixed-matrix kernels -----------------------------------
+    def fixed_times(self):
+        """B3, B4 and B5 per launch at the LARGE_1024 shape, batch 16 (the
+        main entry) and batch 1 (the paper's latency case), beside their
+        twins, one library call each and their bounds."""
+        torch = self.torch
+        from repro_torch.kernels.bcsr_matmul.bcsr_matmul import (
+            bcsr_matmul_plain)
+        from repro_torch.kernels.bcsr_matmul.ops import BcsrMatmul
+        from repro_torch.kernels.bitplane_gemv.bitplane_gemv import (
+            bitplane_gemv_plain)
+        from repro_torch.kernels.bitplane_gemv.ops import BitplaneGemv
+        from repro_torch.kernels.reservoir_step.ops import FusedReservoir
+        from repro_torch.kernels.reservoir_step.reservoir_step import (
+            reservoir_step_plain)
+        timed = self.timed
+        params = self.params_1024
+        cfg = params.config
+        plan = params.w.plan()
+        r = c = cfg.reservoir_dim
+        b3op = BitplaneGemv(plan, device=self.dev)
+        b4op = BcsrMatmul(plan, device=self.dev)
+        dense = params.w.dense_f32(device=self.dev)
+        fr = FusedReservoir(dense, params.w_in, leak=cfg.leak,
+                            device=self.dev)
+        qf = torch.as_tensor(params.w.q, device=self.dev).to(torch.float32)
+        csr_t = dense.t().contiguous().to_sparse_csr()     # cuSPARSE: M^T
+        kept = sum(plan.plane_mask)
+        x16, xq16 = self.fixed_inputs
+        i_dim = cfg.input_dim
+        gen = torch.Generator(device="cpu").manual_seed(31)
+        u16 = torch.randn((16, i_dim), generator=gen).to(self.dev)
+        f32 = FP32_FLOPS_PER_S
+        for batch in (16, 1):
+            x, xq, u = x16[:batch], xq16[:batch], u16[:batch]
+            key = None if batch == 16 else batch
+            b3_ms = timed(lambda: b3op(xq), 200)
+            b3_plain = timed(lambda: bitplane_gemv_plain(
+                xq, b3op.digits, b3op.plane_mask), 5)
+            b3_lib = timed(lambda: xq.float() @ qf, 200)
+            self._record("bitplane_gemv", b3_ms, b3_plain, b3_lib,
+                         kept * r * c + batch * r + 4 * batch * c,
+                         2 * kept * batch * r * c / INT8_OPS_PER_S, key)
+            b4_ms = timed(lambda: b4op(x), 200)
+            b4_plain = timed(lambda: bcsr_matmul_plain(
+                x, b4op.tiles, b4op.col_ptr, b4op.tile_rows, b4op.rows_pad),
+                5)
+            b4_lib = timed(lambda: x @ dense, 200)
+            xt = x.t().contiguous()
+            b4_sparse = timed(lambda: torch.sparse.mm(csr_t, xt), 200)
+            tile_elems = b4op.n_tiles * b4op.block ** 2
+            print(f"cuSPARSE torch.sparse.mm (CSR, {csr_t.values().numel()} "
+                  f"nonzeros) b{batch}: {b4_sparse * 1e3:.2f} us on "
+                  f"{self.card}")
+            self._record("bcsr_matmul", b4_ms, b4_plain, b4_lib,
+                         4 * (tile_elems + batch * r + batch * c),
+                         2 * batch * tile_elems / f32, key)
+            self.kernels["bcsr_matmul"][
+                "cusparse_ms" if key is None else f"cusparse_ms_batch{batch}"
+            ] = b4_sparse
+            out = torch.empty((batch, r), device=self.dev)
+            b5_ms = timed(lambda: fr.step(x, u, out=out), 200)
+            b5_plain = timed(lambda: reservoir_step_plain(
+                x, fr.w, u, fr.w_in, leak=fr.leak), 50)
+            b5_lib = timed(lambda: x @ dense, 200)
+            self._record("reservoir_step", b5_ms, b5_plain, b5_lib,
+                         4 * (r * r + i_dim * r + batch * i_dim
+                              + 2 * batch * r),
+                         batch * r * (2 * r + 2 * i_dim + 6) / f32, key)
+            calls = {"bitplane_gemv": lambda: b3op(xq),
+                     "bcsr_matmul": lambda: b4op(x),
+                     "reservoir_step": lambda: fr.step(x, u, out=out)}
+            for name, call in calls.items():
+                rec = self.kernels[name] if key is None else \
+                    self.kernels[name][f"batch{batch}"]
+                rec["host_ms"] = self._host_ms(call, 50)
+                print(f"  {name} b{batch}: host enqueue "
+                      f"{rec['host_ms'] * 1e3:.1f} us/launch")
+            self._profile([*calls.values(), lambda: xq.float() @ qf,
+                           lambda: x @ dense,
+                           lambda: torch.sparse.mm(csr_t, xt)])
+
+    def _host_ms(self, fn, n):
+        """ms per call of ``fn`` on the host clock with no device sync
+        inside the loop: the Python wrapper's issue cost."""
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host = (time.perf_counter() - t0) / n * 1e3
+        self.torch.cuda.synchronize()
+        return host
+
+    def timed(self, fn, n):
+        """ms per call of ``fn`` over ``n`` calls, by CUDA events, after
+        one warm-up call."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    def _profile(self, calls):
         """Device time per kernel launch from a torch.profiler trace (the
-        CUDA-event times above include any gaps between launches)."""
+        CUDA-event times include any gaps between launches)."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         with profile(activities=acts) as prof:
-            for op, _plain in ops.values():
-                op(u[:16], x0, **kw)
+            for call in calls:
+                call()
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages()
-                if "kernel" in e.key and e.count]
+                if e.count and e.device_time_total > 0]
         if not rows:
             print("profiler: no device kernels recorded")
         for e in rows:
             print(f"  profiler {e.key[:60]}: {e.count} launches, "
                   f"{e.device_time_total / e.count:.2f} us device time each")
 
-    def _record(self, name, ms, plain_ms, library_ms, bytes_, ops_s):
+    def _record(self, name, ms, plain_ms, library_ms, bytes_, ops_s,
+                batch=None):
+        """Times of one kernel beside its bound: the main entry, or with
+        ``batch`` an extra ``batch<N>`` entry of the same kernel."""
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
         t_ops = ops_s * 1e3
-        self.kernels[name] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
-        print(f"time {name}: {ms * 1e3:.2f} us/launch, twin "
-              f"{plain_ms * 1e3:.1f} us, library {library_ms * 1e3:.2f} us, "
-              f"bound {max(t_bytes, t_ops) * 1e3:.4f} us "
-              f"({self.kernels[name]['bound_by']}) on {self.card}")
+        rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        if batch is None:
+            self.kernels[name] = rec
+        else:
+            self.kernels[name][f"batch{batch}"] = rec
+        print(f"time {name}{'' if batch is None else f' batch {batch}'}: "
+              f"{ms * 1e3:.2f} us/launch, twin {plain_ms * 1e3:.1f} us, "
+              f"library {library_ms * 1e3:.2f} us, bound "
+              f"{max(t_bytes, t_ops) * 1e3:.4f} us ({rec['bound_by']}) on "
+              f"{self.card}")
 
     def kernels_line(self) -> str:
         rows = []
-        for name, rep in REPLACES.items():
+        for name, (rep, source) in KERNELS.items():
             e = self.err[name]
             rows.append(dict(
-                name=name, route="cuda", source=SOURCE, replaces=rep,
+                name=name, route="cuda", source=source, replaces=rep,
                 launches=self.launches[name],
                 max_abs_err=max(v for v in e.values() if v is not None),
-                max_abs_err_int8=e["int8"],
-                max_abs_err_fp32=e["fp32"], **self.kernels[name]))
+                **{f"max_abs_err_{m}": v for m, v in e.items()},
+                **self.kernels[name]))
         return json.dumps({"kernels": rows})
 
 
@@ -541,7 +874,8 @@ def main() -> int:
     smoke = Smoke(torch)
     t_all = time.perf_counter()
     for phase in (smoke.build, smoke.twins, smoke.main_path,
-                  smoke.baseline_twins, smoke.times):
+                  smoke.baseline_twins, smoke.fixed_matrix, smoke.times,
+                  smoke.fixed_times):
         t0 = time.perf_counter()
         print(f"== {phase.__name__}")
         try:

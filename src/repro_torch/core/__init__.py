@@ -4,4 +4,6 @@
 - ``costmodel``: FPGA analytic model (Secs IV-VI)
 - ``sparse``: FixedMatrix — offline-compiled fixed sparse matrices
 - ``esn`` / ``ridge``: reservoir computing on top of FixedMatrix (Sec II)
+- ``spatial``: register-level emulator of the bit-serial multiplier (Sec III)
+- ``baselines``: the V100 / SIGMA latency models of Sec. VII
 """

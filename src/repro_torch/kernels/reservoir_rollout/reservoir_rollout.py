@@ -32,6 +32,9 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.sparse import int_matmul_exact
+from repro_torch.kernels._build import check
+from repro_torch.kernels._launch import (check_f32, on_cuda, require_cuda,
+                                         same_device, stream, unit_stride)
 from repro_torch.kernels.reservoir_rollout import _cuda
 from repro_torch.plan.specialize import MM
 
@@ -139,26 +142,23 @@ def rollout_readout(x: torch.Tensor, w_out: torch.Tensor,
     """``y = x @ W_out`` for a (B, dim) state, by the readout kernel on a
     CUDA tensor (one thread block per row, fixed reduction order) or by
     the twin on a CPU tensor."""
-    if x.device.type == "cpu":
-        _same_device(x.device, w_out, out)
+    if not on_cuda(x, w_out, out):
         return rollout_readout_plain(x, w_out, out)
-    _require_cuda(x)
-    _same_device(x.device, w_out, out)
     b, dim = x.shape
     o = w_out.shape[1]
     if out is None:
         out = torch.empty((b, o), device=x.device)
-    _check_f32(x, w_out, out)
-    if (not _unit_stride(x, 1) or not _unit_stride(out, 1)
+    check_f32(x, w_out, out)
+    if (not unit_stride(x, 1) or not unit_stride(out, 1)
             or not w_out.is_contiguous()):
         raise ValueError("rollout_readout needs row-major x, out and w_out")
     if w_out.shape[0] != dim or out.shape != (b, o):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w_out "
                          f"{tuple(w_out.shape)}, out {tuple(out.shape)}")
-    rc = _cuda.library().rollout_readout(
+    rc = _cuda.LIBRARY.load().rollout_readout(
         x.data_ptr(), x.stride(0), w_out.data_ptr(), out.data_ptr(),
-        out.stride(0), b, dim, o, _stream(x.device))
-    _cuda.check(rc, "rollout_readout")
+        out.stride(0), b, dim, o, stream(x.device))
+    check(rc, "rollout_readout")
     rollout_readout.launches += 1
     return out
 
@@ -167,34 +167,8 @@ rollout_readout.launches = 0
 
 
 # -- shared checks ------------------------------------------------------------
-def _require_cuda(t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"expected a CUDA or CPU tensor, got {t.device}")
-
-
-def _same_device(dev: torch.device, *tensors) -> None:
-    for t in tensors:
-        if t is not None and t.device != dev:
-            raise ValueError(f"operands on different devices: {t.device} "
-                             f"vs {dev}")
-
-
-def _check_f32(*tensors) -> None:
-    for t in tensors:
-        if t is not None and t.dtype != torch.float32:
-            raise TypeError(f"expected float32, got {t.dtype}")
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
-
-
-def _unit_stride(t: torch.Tensor, dim: int) -> bool:
-    return t.shape[dim] == 1 or t.stride(dim) == 1
 
 
 def check_operands(u_seq, tables, w_in, x0, w_out, final_out, b_tile,
@@ -203,13 +177,13 @@ def check_operands(u_seq, tables, w_in, x0, w_out, final_out, b_tile,
     type: same device, dtypes, shapes, strides, and a batch tile that fits
     one thread block.  Raises ``ValueError`` / ``TypeError``."""
     dev = u_seq.device
-    _same_device(dev, tables.tiles, w_in, x0, w_out, final_out)
-    _check_f32(u_seq, w_in, x0, w_out, final_out)
+    same_device(dev, tables.tiles, w_in, x0, w_out, final_out)
+    check_f32(u_seq, w_in, x0, w_out, final_out)
     want = torch.int8 if tables.int8 else torch.float32
     if tables.tiles.dtype != want:
         raise TypeError(f"{tables.mode} tiles must be {want}, "
                         f"got {tables.tiles.dtype}")
-    if u_seq.dim() != 3 or not _unit_stride(u_seq, 2):
+    if u_seq.dim() != 3 or not unit_stride(u_seq, 2):
         raise ValueError("u_seq must be (T, B, I) with unit stride over I")
     t, b, i = u_seq.shape
     if t < 1:
@@ -249,14 +223,14 @@ def _launch_rollout(entry: str, counted, u_seq, tables, w_in, x0, w_out, *,
     ``readout_every`` steps.  The state ping-pongs through device buffers
     (or the states output itself); the last step writes straight into the
     final-state buffer — the caller's carry when it donates one."""
-    _require_cuda(u_seq)
+    require_cuda(u_seq)
     check_operands(u_seq, tables, w_in, x0, w_out, final_out, b_tile,
                    want_preds, readout_every)
-    fn = getattr(_cuda.library(), entry)
+    fn = getattr(_cuda.LIBRARY.load(), entry)
     dev = u_seq.device
     t_steps, b, i = u_seq.shape
     dim = x0.shape[1]
-    stream = _stream(dev)
+    cuda_stream = stream(dev)
     states = (torch.empty((t_steps, b, dim), device=dev)
               if want_states else None)
     preds = (torch.empty((t_steps // readout_every, b, w_out.shape[1]),
@@ -288,8 +262,8 @@ def _launch_rollout(entry: str, counted, u_seq, tables, w_in, x0, w_out, *,
                 nxt.data_ptr(), nxt.stride(0), _ptr(copy),
                 0 if copy is None else copy.stride(0),
                 u_seq[t].data_ptr(), u_seq.stride(1), w_in.data_ptr(),
-                *tables_ptrs, *consts, stream)
-        _cuda.check(rc, entry)
+                *tables_ptrs, *consts, cuda_stream)
+        check(rc, entry)
         counted.launches += 1
         if want_preds and (t + 1) % readout_every == 0:
             rollout_readout(nxt, w_out, out=preds[(t + 1) // readout_every - 1])
@@ -355,7 +329,7 @@ def _plain_rollout(u_seq, tables, w_in, x0, w_out=None, *, leak=1.0,
     epilogue uses separately rounded operations, as the kernel does, so
     every element goes through the kernel's rounding sequence.
     """
-    _same_device(u_seq.device, tables.tiles, w_in, x0, w_out, final_out)
+    same_device(u_seq.device, tables.tiles, w_in, x0, w_out, final_out)
     t_steps, b, i = u_seq.shape
     dim = x0.shape[-1]
     rpad = tables.n_col_blocks * tables.block

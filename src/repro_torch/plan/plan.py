@@ -11,7 +11,8 @@ consumer needs, so no kernel wrapper re-derives them ad hoc:
 * gathered fp32 nonzero tiles + per-column reduction terms (block culling),
 * int8 digit-plane tiles + per-column ``(plane, tile, row_block)`` terms
   with plane-level culling on top of block-level culling,
-* whole-plane keep masks,
+* whole-plane keep masks and block-padded digit planes (bitplane gemv),
+* the sorted, column-padded BCSR tile list (block-sparse matmul),
 * banded rollout layouts: output column blocks partitioned into bands
   whose weight tiles fit a byte budget,
 * the FPGA cost model evaluated on the exact decomposed structure
@@ -36,11 +37,12 @@ import numpy as np
 
 from repro_torch import obs
 from repro_torch.core import costmodel
-from repro_torch.core.sparse import FixedMatrix
+from repro_torch.core.sparse import BlockSparse, FixedMatrix
 
 __all__ = [
     "DEFAULT_VMEM_BUDGET",
     "BandedRollout",
+    "BcsrLayout",
     "ExecutionPlan",
     "PlanStats",
     "RolloutBand",
@@ -84,6 +86,51 @@ class PlanStats:
     @property
     def block_density(self) -> float:
         return self.blocks_nnz / max(self.blocks_total, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class BcsrLayout:
+    """Sorted/padded tile list for the BCSR matmul kernel.
+
+    Tiles are sorted by (col, row) so each output column block's tiles
+    form one contiguous run (``col_ptr``), and every empty output column
+    gets one zero tile so the whole output is written.
+    """
+
+    shape: tuple[int, int]
+    block: int
+    rows_pad: int
+    cols_pad: int
+    data: np.ndarray           # (n_tiles, block, block)
+    cols: np.ndarray           # (n_tiles,) int32
+    rows: np.ndarray           # (n_tiles,) int32
+    n_tiles: int
+
+    @classmethod
+    def from_blocks(cls, bs: BlockSparse) -> "BcsrLayout":
+        nbr, nbc = bs.mask.shape
+        data = np.asarray(bs.data)
+        cols = bs.block_cols.astype(np.int32)
+        rows = bs.block_rows.astype(np.int32)
+        missing = sorted(set(range(nbc)) - set(cols.tolist()))
+        if missing:
+            zero = np.zeros((len(missing), bs.block, bs.block), data.dtype)
+            data = np.concatenate([data, zero], axis=0) if data.size else zero
+            cols = np.concatenate([cols, np.asarray(missing, np.int32)])
+            rows = np.concatenate([rows, np.zeros(len(missing), np.int32)])
+        order = np.lexsort((rows, cols))
+        return cls(shape=bs.shape, block=bs.block,
+                   rows_pad=nbr * bs.block, cols_pad=nbc * bs.block,
+                   data=np.ascontiguousarray(data[order]),
+                   cols=cols[order], rows=rows[order],
+                   n_tiles=int(data.shape[0]))
+
+    @property
+    def col_ptr(self) -> np.ndarray:
+        """(n_col_blocks + 1,) int32: column block ``c``'s tiles are
+        ``col_ptr[c]:col_ptr[c + 1]`` (never empty)."""
+        nbc = self.cols_pad // self.block
+        return np.searchsorted(self.cols, np.arange(nbc + 1)).astype(np.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,6 +241,20 @@ class ExecutionPlan:
         culling — a reduction term exists only where that plane of that
         block has any set digit."""
         return np.any(self.int8_tiles != 0, axis=(2, 3))
+
+    def padded_digits(self, block_r: int = 128,
+                      block_c: int = 128) -> np.ndarray:
+        """Signed digits zero-padded to block multiples for bitplane_gemv
+        (C-contiguous: one plane after another, rows of columns)."""
+        dig = self.digits
+        dig = pad_axis(dig, 1, -(-dig.shape[1] // block_r) * block_r)
+        dig = pad_axis(dig, 2, -(-dig.shape[2] // block_c) * block_c)
+        return np.ascontiguousarray(dig)
+
+    # -- BCSR lowering ------------------------------------------------------
+    @functools.cached_property
+    def bcsr(self) -> BcsrLayout:
+        return BcsrLayout.from_blocks(self._fm.blocks)
 
     # -- rollout lowering (banded) ------------------------------------------
     def _col_term_descriptors(self, mode: str) -> list:

@@ -195,7 +195,7 @@ def test_cpu_runs_twins_without_building_or_counting():
     t_spec(torch.as_tensor(_inputs(batch=2, t=2)), want_preds=True)
     assert (reservoir_rollout.launches, specialized_rollout.launches,
             rollout_readout.launches) == before
-    assert _cuda._LIB is None
+    assert not _cuda.LIBRARY.loaded
 
 
 def test_wrapper_rejects_foreign_and_mixed_devices():
