@@ -6,17 +6,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 1. builds the four CUDA sources from ``src/repro_torch`` at once (one
    nvcc each, into ``build/``) and prints each build time and ptxas line,
    the PyTorch/CUDA versions and the card's name and power limit;
-2. holds both rollout kernels (B1 generic, B2 specialized) and the readout
-   kernel against their plain PyTorch twins on the card, on dim-256 /
-   block-64 matrices (one with whole zero blocks) over {fp32, int8} x
-   {resident, pipelined} x batch {3, 16}, with readout and final state;
+2. holds both rollout kernels (B1 generic, B2 specialized; each call one
+   persistent cooperative launch of all T steps, the readout inside it)
+   against their plain PyTorch twins on the card, on dim-256 / block-64
+   matrices (one with whole zero blocks) and a sparse block-32 one with
+   shift-add digits, over {fp32, int8} x {resident, pipelined} x batch
+   {3, 16}, with readout and final state;
 3. drives the main serving path at ``LARGE_1024`` (dim 1024, int8-CSD):
    ``init_esn`` -> ``fit_readout`` -> an ``AsyncReservoirServer`` with 16
    slots answering a burst of 24 requests in 32-step chunks (five bursts,
    each on a fresh server), the same requests one-shot through
    ``submit_many`` (chunked must equal one-shot bit for bit), and through
    the generic kernel (``specialize=False``, must equal the specialized
-   one bit for bit);
+   one bit for bit); a served chunk must be one B2 launch with the
+   readout fused into it (no standalone readout launch);
 4. serves fp32 requests at ``PAPER_BASELINE`` (dim 800) with both kernels,
    then holds both against their twins at that shape (a ragged last
    column block);
@@ -31,7 +34,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 5. times each kernel per launch at the LARGE_1024 shape with CUDA events
    and the profiler, beside its plain twin, one PyTorch call computing the
    same product (and cuSPARSE for B4), and the least time the card could
-   take (its bound); B3-B5 at batch 16 and 1.
+   take (its bound); B1 and B2 per launch of T = 32 and 64 steps (reported
+   per step), with each grid's shared memory per block, its host enqueue
+   and a sweep of block counts; the standalone readout kernel against its
+   twin; B3-B5 at batch 16 and 1.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  The last line is ``{"ok": true, "device": {...}}``.
@@ -272,10 +278,10 @@ class Smoke:
         from repro_torch.serve import (AsyncReservoirServer, ReservoirEngine,
                                        ServeStats, SubmitSpec)
         counted = {"specialized_rollout": specialized_rollout,
-                   "reservoir_rollout": reservoir_rollout,
-                   "rollout_readout": rollout_readout}
+                   "reservoir_rollout": reservoir_rollout}
         for fn in counted.values():
             fn.launches = 0
+        rollout_readout.launches = rollout_readout.fused_launches = 0
 
         t0 = time.perf_counter()
         params = init_esn(LARGE_1024, device=self.dev)
@@ -307,11 +313,15 @@ class Smoke:
         # the same burst BURSTS times, each on a fresh server: the rate is
         # all requests over all wall time, beside each burst's own rate
         bursts, served = [], []
-        before, chunks = specialized_rollout.launches, 0
+        n_req = BURSTS * len(specs)
+        b2_served = fused_served = chunks = 0
         for _ in range(BURSTS):
-            # stats of its own: the engine's would add up across bursts
+            # stats of its own: the engine's would add up across bursts;
+            # the server's warm-up launch at construction is not served
             srv = AsyncReservoirServer(eng, n_slots=16, chunk_steps=32,
                                        stats=ServeStats())
+            before = (specialized_rollout.launches,
+                      rollout_readout.fused_launches)
             for i, spec in enumerate(specs):
                 srv.submit(spec, arrival_time=0.001 * i)
             t0 = time.perf_counter()
@@ -319,6 +329,8 @@ class Smoke:
             torch.cuda.synchronize()
             bursts.append(time.perf_counter() - t0)
             chunks += srv.stats.chunks
+            b2_served += specialized_rollout.launches - before[0]
+            fused_served += rollout_readout.fused_launches - before[1]
             served.append(res)
             self.check(len(res) == len(specs) and all(
                 r.status == "ok" and r.preds.shape == (n, 1)
@@ -326,19 +338,45 @@ class Smoke:
                 for r, n in zip((res[i] for i in range(len(specs))),
                                 lengths)),
                 "server answered every request")
-        b2_served = specialized_rollout.launches - before
         self.chunk_launches = b2_served / max(chunks, 1)
         self.check(b2_served > 0, "B2 launched by the server")
+        self.check(b2_served == chunks and fused_served == chunks
+                   and rollout_readout.launches == 0,
+                   f"one B2 launch with its readout fused per served chunk "
+                   f"({b2_served} launches, {fused_served} fused readouts, "
+                   f"{rollout_readout.launches} readout launches, "
+                   f"{chunks} chunks)")
         wall = sum(bursts)
-        n_req = BURSTS * len(specs)
         print(f"server: {BURSTS} bursts x {len(specs)} requests, "
               f"{BURSTS * int(lengths.sum())} steps, {chunks} chunks, "
               f"{wall:.4f} s wall = {n_req / wall:.1f} requests/s, "
               f"{BURSTS * lengths.sum() / wall:.0f} steps/s "
-              f"({b2_served} B2 launches, {self.chunk_launches:.0f} per "
-              f"chunk) on {self.card}")
+              f"({b2_served} B2 launches, {self.chunk_launches:g} per "
+              f"chunk; {fused_served} fused readouts, "
+              f"{rollout_readout.launches} standalone readout launches) "
+              f"on {self.card}")
         print("  per burst requests/s: "
               + ", ".join(f"{len(specs) / w:.1f}" for w in bursts))
+        # the same burst with every request there at time 0: the arrivals
+        # above are 1 ms apart on the server's clock, which bounds a burst
+        # below by 23 ms; here the pool stays full and the chunk cost sets
+        # the rate
+        walls, chunks0 = [], 0
+        for _ in range(BURSTS):
+            srv = AsyncReservoirServer(eng, n_slots=16, chunk_steps=32,
+                                       stats=ServeStats())
+            for spec in specs:
+                srv.submit(spec, arrival_time=0.0)
+            t0 = time.perf_counter()
+            srv.run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            chunks0 += srv.stats.chunks
+        print(f"server, all arrivals at 0: {n_req / sum(walls):.1f} "
+              f"requests/s, {chunks0} chunks, "
+              f"{sum(walls) / chunks0 * 1e6:.1f} us per chunk (per burst "
+              + ", ".join(f"{len(specs) / w:.1f}" for w in walls)
+              + f") on {self.card}")
 
         one_walls = []
         for _ in range(BURSTS):
@@ -375,7 +413,12 @@ class Smoke:
         print(f"PAPER_BASELINE fp32 (dim 800 -> 7 column blocks of 128): "
               f"specialized vs generic max |diff| {d:.3g}")
         self.launches = {k: fn.launches for k, fn in counted.items()}
-        print("main-path launches:", self.launches)
+        # the readout runs inside the rollout launches on this path
+        self.launches["rollout_readout"] = rollout_readout.fused_launches
+        self.check(rollout_readout.launches == 0,
+                   "no standalone readout launch on the main path")
+        print("main-path launches (rollout_readout: fused readouts):",
+              self.launches)
         for k, n in self.launches.items():
             self.check(n > 0, f"{k} launched on the main path")
         self.params_800 = p800
@@ -419,28 +462,35 @@ class Smoke:
 
     # -- phase 5 -------------------------------------------------------------
     def times(self):
+        """B1 and B2 at the LARGE_1024 serve shape (B = 16, int8): one
+        launch of T = 32 (a served chunk) and of T = 64 steps, reported
+        per step, by CUDA events and the profiler, with the host enqueue
+        per launch and a sweep of block counts; then the standalone
+        readout kernel."""
         torch = self.torch
         from repro_torch.kernels.reservoir_rollout.ops import FusedRollout
         from repro_torch.kernels.reservoir_rollout.reservoir_rollout import (
-            reservoir_rollout_plain, rollout_readout)
+            _launch_rollout, reservoir_rollout, reservoir_rollout_plain,
+            rollout_grid, rollout_readout)
         from repro_torch.kernels.reservoir_rollout.specialized import (
-            SpecializedRollout, specialized_rollout_plain)
+            SpecializedRollout, specialized_rollout, specialized_rollout_plain)
         params = self.params_1024
         cfg = params.config
         plan = params.w.plan()
-        b, t_steps, reps = 16, 64, 5
+        b, reps = 16, 20
         gen = torch.Generator(device="cpu").manual_seed(5)
-        u = torch.randn((t_steps, b, 1), generator=gen).to(self.dev)
+        u = torch.randn((64, b, 1), generator=gen).to(self.dev)
         x0 = (0.5 * torch.randn((b, cfg.reservoir_dim),
                                 generator=gen)).to(self.dev)
         ops = {
             "specialized_rollout": (SpecializedRollout(
                 plan, params.w_in, leak=cfg.leak, mode="int8",
                 w_out=params.w_out, device=self.dev),
-                specialized_rollout_plain),
+                specialized_rollout_plain, specialized_rollout),
             "reservoir_rollout": (FusedRollout(
                 plan, params.w_in, leak=cfg.leak, mode="int8",
-                w_out=params.w_out, device=self.dev), reservoir_rollout_plain),
+                w_out=params.w_out, device=self.dev), reservoir_rollout_plain,
+                reservoir_rollout),
         }
 
         timed = self.timed
@@ -449,45 +499,98 @@ class Smoke:
         lib_step = timed(lambda: x @ dense, 200)
         bk = plan.block
         kw = dict(want_states=True, want_preds=False, want_final=False)
-        # in turns (B2, B1, B1, B2): the minimum of each kernel's two runs
-        runs = {name: [] for name in ops}
+        extras = {}          # per kernel: its grid and its time sweeps
+        for name, (op, _plain, _fn) in ops.items():
+            grid, _ = rollout_grid(op.tables, self.dev)
+            print(f"  {name} grid: {grid.n_blocks} blocks of {grid.cw} "
+                  f"columns, share {grid.share_bytes} B per block, "
+                  f"{'resident' if grid.resident else 'streamed'}, "
+                  f"{grid.smem} B shared memory per block")
+            extras[name] = dict(
+                n_blocks=grid.n_blocks, share_bytes=grid.share_bytes,
+                resident=grid.resident, smem_bytes=grid.smem)
+        # in turns (B2, B1, B1, B2): the minimum of each kernel's two runs,
+        # per step, for one launch of T steps
+        runs = {(name, t): [] for name in ops for t in (32, 64)}
         for name in ("specialized_rollout", "reservoir_rollout",
                      "reservoir_rollout", "specialized_rollout"):
             op = ops[name][0]
-            runs[name].append(timed(lambda: op(u, x0, **kw), reps) / t_steps)
-        print("per-step runs (ms):", runs)
-        self._profile([lambda op=op: op(u[:16], x0, **kw)
-                       for op, _plain in ops.values()])
-        for name, (op, _plain) in ops.items():
-            # host side alone: the loop's enqueue time, no device sync
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            op(u, x0, **kw)
-            host = (time.perf_counter() - t0) / t_steps
-            torch.cuda.synchronize()
-            print(f"  {name}: host enqueue {host * 1e6:.1f} us/step")
-        for name, (op, plain) in ops.items():
-            per_step = min(runs[name])
+            for t in (32, 64):
+                runs[name, t].append(
+                    timed(lambda: op(u[:t], x0, **kw), reps) / t)
+        print("per-step runs (ms):",
+              {f"{k[0]} T={k[1]}": v for k, v in runs.items()})
+        for name, (op, _p, _f) in ops.items():
+            for t in (32, 64):
+                dev_us = self._device_us(lambda: op(u[:t], x0, **kw),
+                                         "rollout_kernel")
+                extras[name][f"device_us_per_launch_T{t}"] = \
+                    dev_us
+                print(f"  {name} T={t}: {dev_us:.2f} us device time per "
+                      f"launch = {dev_us / t:.3f} us/step on {self.card}")
+        for name, (op, plain, fn) in ops.items():
+            extra = extras[name]
+            for t in (32, 64):
+                extra[f"ms_per_step_T{t}"] = min(runs[name, t])
+                extra[f"ms_per_launch_T{t}"] = min(runs[name, t]) * t
+                host = self._host_ms(lambda: op(u[:t], x0, **kw), reps)
+                extra[f"host_ms_per_launch_T{t}"] = host
+                print(f"  {name} T={t}: {min(runs[name, t]) * 1e3:.3f} us/step"
+                      f", {min(runs[name, t]) * t * 1e3:.2f} us/launch, host "
+                      f"enqueue {host * 1e3:.1f} us/launch on {self.card}")
+            # block-count sweep, one launch of T = 64 steps
+            sweep = {}
+            chosen = extra["n_blocks"]
+            for nb in sorted({32, 64, 128, chosen}):
+                grid, _ = rollout_grid(op.tables, self.dev, nb)
+                call = lambda nb=nb: _launch_rollout(   # noqa: E731
+                    fn, u, op.tables, op.w_in, x0, None, leak=op.leak,
+                    smax=op.smax, recur_scale=op.recur_scale, b_tile=b,
+                    n_blocks=nb, **kw)
+                sweep[nb] = timed(call, reps) / 64
+                print(f"  {name} {nb} blocks ({grid.cw} columns, "
+                      f"{'resident' if grid.resident else 'streamed'}, "
+                      f"{grid.smem} B smem/block): {sweep[nb] * 1e3:.3f} "
+                      f"us/step{' (chosen)' if nb == chosen else ''}")
+            extra["ms_per_step_by_blocks"] = sweep
+            # the same launch at batch 1: what of a step scales with B
+            u1, x1 = u[:, :1], x0[:1]
+            extra["ms_per_step_batch1"] = timed(
+                lambda: op(u1, x1, **kw), reps) / 64
+            print(f"  {name} batch 1, T=64: "
+                  f"{extra['ms_per_step_batch1'] * 1e3:.3f} us/step on "
+                  f"{self.card}")
+        for name, (op, plain, _fn) in ops.items():
+            per_step = min(runs[name, 64])
             common = dict(leak=op.leak, smax=op.smax,
                           recur_scale=op.recur_scale, readout_every=1, **kw)
             short = u[:8]
             plain_step = timed(lambda: plain(short, op.tables, op.w_in, x0,
                                              None, **common), 2) / 8
-            got = op(u[:16], x0, **kw)
-            ref = plain(u[:16], op.tables, op.w_in, x0, None, **common)
-            d = maxdiff(got, ref)
+            # the served shape's states and its fused readout (per-block
+            # partial sums reduced across the grid) against the twin
+            got_s, got_p = op(u[:16], x0, want_states=True, want_preds=True)
+            ref_s, ref_p = plain(u[:16], op.tables, op.w_in, x0, op.w_out,
+                                 **dict(common, want_preds=True))
+            d, dp = maxdiff(got_s, ref_s), maxdiff(got_p, ref_p)
             self.note_err(name, "int8", d)
-            self.check(d == 0.0, f"{name} vs twin at LARGE_1024: {d:.3g}")
+            self.note_err("rollout_readout", "int8", dp)
+            self.check(d == 0.0 and dp <= READOUT_TOL,
+                       f"{name} vs twin at LARGE_1024: states {d:.3g}, "
+                       f"fused readout {dp:.3g}")
+            print(f"  LARGE_1024 int8 {name} vs twin, T=16: states {d:.3g}, "
+                  f"fused readout {dp:.3g}")
             tb = op.tables
             n_mm = tb.n_matmul_terms
             bytes_ = (n_mm * bk * bk + tb.n_digits * 16
-                      + tb.terms.numel() * 4 + 2 * b * cfg.reservoir_dim * 4
+                      + len(tb.terms_host) * 16 + 2 * b * cfg.reservoir_dim * 4
                       + b * cfg.input_dim * 4
                       + cfg.input_dim * cfg.reservoir_dim * 4)
             int_ops = 2 * n_mm * bk * bk * b + 2 * tb.n_digits * b
             f32_ops = b * cfg.reservoir_dim * (2 * cfg.input_dim + 6)
             self._record(name, per_step, plain_step, lib_step, bytes_,
                          int_ops / INT8_OPS_PER_S + f32_ops / FP32_FLOPS_PER_S)
+            self.kernels[name].update(extras[name])
         o = params.w_out.shape[1]
         out = torch.empty((b, o), device=self.dev)
         ro = timed(lambda: rollout_readout(x0, params.w_out, out), 200)
@@ -499,6 +602,9 @@ class Smoke:
         self._record("rollout_readout", ro, ro_plain, ro_plain,
                      (b * dim + dim * o + b * o) * 4,
                      2 * b * dim * o / FP32_FLOPS_PER_S)
+        self.kernels["rollout_readout"]["device_us_per_launch"] = \
+            self._device_us(lambda: rollout_readout(x0, params.w_out, out),
+                            "readout_kernel")
 
     # -- phase 6 -------------------------------------------------------------
     def _unit_scale(self, dim, block):
@@ -818,6 +924,12 @@ class Smoke:
         for e in rows:
             print(f"  profiler {e.key[:60]}: {e.count} launches, "
                   f"{e.device_time_total / e.count:.2f} us device time each")
+        return rows
+
+    def _device_us(self, call, kernel: str):
+        """Device µs of one call's launches of ``kernel`` (profiler)."""
+        rows = self._profile([call])
+        return sum(e.device_time_total for e in rows if kernel in e.key)
 
     def _record(self, name, ms, plain_ms, library_ms, bytes_, ops_s,
                 batch=None):

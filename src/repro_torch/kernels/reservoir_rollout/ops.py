@@ -103,8 +103,8 @@ class FusedRollout(RolloutOp):
     (building it if handed a raw FixedMatrix), pick the banded rollout
     layout for the mode and byte budget, and place its tables on the
     device.  Online (``__call__``): :func:`reservoir_rollout` rolls the
-    whole (T, B) workload; with ``w_out`` attached the readout kernel runs
-    after each (k-th) step.
+    whole (T, B) workload in one launch; with ``w_out`` attached the
+    readout is computed inside it after each (k-th) step.
     """
 
     def __init__(self, source: FixedMatrix | ExecutionPlan, w_in, *,
@@ -125,7 +125,7 @@ class FusedRollout(RolloutOp):
         return self.layout.n_bands
 
     def _batch_tile(self, batch: int) -> int:
-        # the TPU kernel has no batch tiling; rows per thread block follow
+        # the TPU kernel has no batch tiling; rows per batch tile follow
         # the specialized program's default tile, balanced the same way
         n_tiles = max(1, -(-batch // DEFAULT_BATCH_TILE))
         return -(-batch // n_tiles)

@@ -14,17 +14,19 @@ of the paper's synthesis-time adder culling.  Two modes share one kernel:
 * ``int8`` — exact digit-plane arithmetic: the state batch is requantized
   every step and each term is a shifted int32 plane-tile product.
 
-This module holds what both rollout kernels share — the device descriptor
-tables, the host loop over T (one CUDA launch per step), the readout
-kernel's wrapper and the plain PyTorch twin of one step — and the B1 entry
-point :func:`reservoir_rollout` with its twin
-:func:`reservoir_rollout_plain`.  A CUDA tensor goes through the kernel
-(``csrc/rollout.cu``) or raises; a CPU tensor takes the twin, the port's
-analogue of Pallas ``interpret=True``.
+This module holds what both rollout kernels share — the host tables, their
+per-thread-block packing and grid choice, the launch of the persistent
+kernel (all T steps in one cooperative launch), the readout kernel's
+wrapper and the plain PyTorch twin of one step — and the B1 entry point
+:func:`reservoir_rollout` with its twin :func:`reservoir_rollout_plain`.
+A CUDA tensor goes through the kernel (``csrc/rollout.cu``) or raises; a
+CPU tensor takes the twin, the port's analogue of Pallas
+``interpret=True``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -33,55 +35,80 @@ import torch
 from repro_torch import obs
 from repro_torch.core.sparse import int_matmul_exact
 from repro_torch.kernels._build import check
-from repro_torch.kernels._launch import (check_f32, on_cuda, require_cuda,
-                                         same_device, stream, unit_stride)
+from repro_torch.kernels._launch import (MAX_SMEM, check_f32, on_cuda,
+                                         require_cuda, same_device, stream,
+                                         unit_stride)
 from repro_torch.kernels.reservoir_rollout import _cuda
 from repro_torch.plan.specialize import MM
 
-__all__ = ["RolloutTables", "build_tables", "generic_schedules",
-           "plain_recurrent_product", "reservoir_rollout",
-           "reservoir_rollout_plain",
-           "rollout_readout", "rollout_readout_plain"]
+__all__ = ["BlockShares", "RolloutGrid", "RolloutTables", "build_tables",
+           "generic_schedules", "pack_blocks", "plain_recurrent_product",
+           "plan_grid", "reservoir_rollout", "reservoir_rollout_plain",
+           "rollout_grid", "rollout_readout", "rollout_readout_plain",
+           "smem_bytes"]
 
-_MAX_SLICE = 32               # output columns per thread block
-_MAX_THREADS = 1024
-_MAX_SMEM = 48 * 1024         # default dynamic shared memory per block
-
-
-def column_slice(block: int) -> int:
-    """Columns of a column block that one thread block owns: the largest
-    divisor of ``block`` up to 32."""
-    return max(d for d in range(1, min(_MAX_SLICE, block) + 1)
-               if block % d == 0)
+# The persistent kernel's geometry (csrc/rollout.cu).
+_MMA_ROWS = 16                # batch rows per tile: the MMA's M
+_MMA_COLS = 8                 # output columns per MMA: N
+_MMA_DEPTH = 32               # rows per MMA: K
+_BAR_BYTES = 16               # the mbarrier at the head of shared memory
+_ALIGN = 16                   # bulk copies move multiples of 16 bytes
+_MAX_DIGIT_COLS = 1 << 8      # a digit word's column field: bits 16-23
 
 
 @dataclasses.dataclass(frozen=True)
 class RolloutTables:
-    """A rollout schedule lowered into device tables (one per device).
+    """A rollout schedule lowered into tables for one device.
 
-    ``terms`` rows are ``(0, tile, shift, row_block)`` for a tile product
-    and ``(1, row_block, digit_lo, digit_hi)`` for a shift-add group whose
-    ``(i, j, sign, w)`` digits sit in ``digits[digit_lo:digit_hi]``;
-    ``col_ptr[ci]:col_ptr[ci + 1]`` are output column block ``ci``'s terms,
-    in schedule order.  ``tiles`` flattens the banded data to
-    ``(n_bands * max_terms, block, block)``.
+    ``terms_host`` rows are ``(0, tile, shift, row_block)`` for a tile
+    product and ``(1, row_block, digit_lo, digit_hi)`` for a shift-add
+    group whose ``(i, j, sign, w)`` digits sit in
+    ``digits[digit_lo:digit_hi]``; ``col_ptr_host[ci]:col_ptr_host[ci + 1]``
+    are output column block ``ci``'s terms, in schedule order.
+    ``data_host`` flattens the banded data to ``(n_bands * max_terms,
+    block, block)``; :func:`pack_blocks` cuts each thread block's share
+    for the kernel from it.  ``tiles`` and ``digits`` are the same arrays
+    on ``device``, made at first use: only the twin reads them.
     """
 
     mode: str
     block: int
     n_col_blocks: int
-    tiles: torch.Tensor
-    col_ptr: torch.Tensor
-    terms: torch.Tensor
-    digits: torch.Tensor
+    device: torch.device
+    data_host: np.ndarray
+    digits_host: np.ndarray
     col_ptr_host: tuple
     terms_host: tuple
     n_matmul_terms: int
     n_digits: int
+    # (device, n_blocks) -> (RolloutGrid, device operands); filled at launch
+    grids: dict = dataclasses.field(default_factory=dict, compare=False,
+                                    repr=False)
+    # "tiles" / "digits" on the device; filled when the twin first runs
+    _twin_operands: dict = dataclasses.field(default_factory=dict,
+                                             compare=False, repr=False)
+
+    def _on_device(self, name: str, host: np.ndarray) -> torch.Tensor:
+        if name not in self._twin_operands:
+            self._twin_operands[name] = torch.as_tensor(host,
+                                                        device=self.device)
+        return self._twin_operands[name]
+
+    @property
+    def tiles(self) -> torch.Tensor:
+        return self._on_device("tiles", self.data_host)
+
+    @property
+    def digits(self) -> torch.Tensor:
+        return self._on_device("digits", self.digits_host)
 
     @property
     def int8(self) -> bool:
         return self.mode == "int8"
+
+    @property
+    def rows_pad(self) -> int:
+        return self.n_col_blocks * self.block
 
 
 def generic_schedules(band_plans: tuple) -> tuple:
@@ -109,21 +136,205 @@ def build_tables(schedules: tuple, data: np.ndarray, *, mode: str,
                     lo = len(digits)
                     digits.extend(dgs)
                     per_col[ci].append((1, ri, lo, len(digits)))
-    col_ptr = np.cumsum([0] + [len(c) for c in per_col]).astype(np.int32)
+    col_ptr = np.cumsum([0] + [len(c) for c in per_col])
     rows = [t for col in per_col for t in col]
-    as_i32 = lambda a: torch.as_tensor(                      # noqa: E731
-        np.asarray(a, np.int32).reshape(-1, 4), device=device)
+    digits_host = np.asarray(digits, np.int32).reshape(-1, 4)
+    data_host = data.reshape(n_bands * max_terms, bk, bk)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return RolloutTables(
-        mode=mode, block=bk, n_col_blocks=n_col_blocks,
-        tiles=torch.as_tensor(data.reshape(n_bands * max_terms, bk, bk),
-                              device=device),
-        col_ptr=torch.as_tensor(col_ptr, device=device),
-        terms=as_i32(rows or np.zeros((1, 4))),
-        digits=as_i32(digits or np.zeros((1, 4))),
+        mode=mode, block=bk, n_col_blocks=n_col_blocks, device=device,
+        data_host=data_host, digits_host=digits_host,
         col_ptr_host=tuple(int(c) for c in col_ptr),
         terms_host=tuple(rows),
         n_matmul_terms=sum(1 for r in rows if r[0] == 0),
         n_digits=len(digits))
+
+
+# -- per-block packing and the grid -------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class BlockShares:
+    """Every thread block's share of a table, for one grid size.
+
+    Block ``k`` owns columns ``c0 .. c0 + cw`` of column block
+    ``k // slices`` (``c0`` = that block's first column + ``(k % slices)
+    * cw``).  Its share, at byte ``meta[k, 0]`` of ``blob``, holds the
+    column block's MM terms as int32 ``(row block, shift)`` pairs (padded
+    to 16 bytes), then its ``cw`` columns of every MM term's tile in that
+    order — int8 tiles as m16n8k32 B fragments (``(term, 32-row chunk,
+    8-column group)`` x 256 bytes, lane ``l``'s 8 bytes at ``8 l``), fp32
+    tiles as ``(term, row, column)`` floats — then its shift-add digits
+    as one uint32 each (row of the state, column within the slice << 16,
+    shift << 24, negative << 28).  ``meta`` rows are ``(offset, MM terms,
+    digits, share bytes)``; shares are padded to 16 bytes for the bulk
+    copy.
+    """
+
+    n_blocks: int
+    slices: int
+    cw: int
+    blob: np.ndarray
+    meta: np.ndarray
+
+    @property
+    def share_bytes(self) -> int:
+        """The largest share: what residency needs per block."""
+        return int(self.meta[:, 3].max())
+
+
+def _slice_options(block: int) -> list[int]:
+    """Thread blocks per column block: the divisors of ``block // 8``, so
+    a block owns whole 8-column MMA groups."""
+    groups = block // _MMA_COLS
+    return [s for s in range(1, groups + 1) if groups % s == 0]
+
+
+def _pad16(a: np.ndarray) -> np.ndarray:
+    return np.concatenate([a, np.zeros(-len(a) % _ALIGN, np.uint8)])
+
+
+def pack_blocks(tables: RolloutTables, n_blocks: int) -> BlockShares:
+    """Cut ``tables`` into the shares of ``n_blocks`` thread blocks."""
+    bk, ncb = tables.block, tables.n_col_blocks
+    slices = n_blocks // ncb
+    if n_blocks % ncb or slices not in _slice_options(bk):
+        raise ValueError(
+            f"{n_blocks} thread blocks do not split {ncb} column blocks of "
+            f"{bk} into 8-column groups; use {ncb} x one of "
+            f"{_slice_options(bk)}")
+    cw = bk // slices
+    if tables.n_digits and cw > _MAX_DIGIT_COLS:
+        raise ValueError(
+            f"{n_blocks} thread blocks give slices of {cw} columns; a "
+            f"shift-add digit word holds a column within its slice in 8 "
+            f"bits, so slices of at most {_MAX_DIGIT_COLS} columns")
+    groups, kch = cw // _MMA_COLS, bk // _MMA_DEPTH
+    cp, rows = tables.col_ptr_host, tables.terms_host
+    shares, meta = [], []
+    offset = 0
+    for ci in range(ncb):
+        terms = rows[cp[ci]:cp[ci + 1]]
+        mm = [t for t in terms if t[0] == 0]
+        head = _pad16(np.asarray([(rb, shift) for _k, _t, shift, rb in mm],
+                                 np.int32).view(np.uint8).reshape(-1))
+        tiles = tables.data_host[[t[1] for t in mm]]        # (n_mm, bk, bk)
+        dg = [np.column_stack([tables.digits_host[lo:hi, 0] + rb * bk,
+                               tables.digits_host[lo:hi, 1:]])
+              for _k, rb, lo, hi in terms if _k == 1]
+        dg = np.concatenate(dg) if dg else np.zeros((0, 4), np.int64)
+        for sl in range(slices):
+            c0 = sl * cw
+            part = tiles[:, :, c0:c0 + cw]
+            if tables.int8:
+                part = part.reshape(len(mm), kch, 2, 4, 4, groups, 8
+                                    ).transpose(0, 1, 5, 6, 3, 2, 4)
+            tile_bytes = np.ascontiguousarray(part).view(np.uint8).reshape(-1)
+            mine = dg[(dg[:, 1] >= c0) & (dg[:, 1] < c0 + cw)]
+            words = (mine[:, 0].astype(np.uint32)
+                     | ((mine[:, 1] - c0).astype(np.uint32) << 16)
+                     | (mine[:, 3].astype(np.uint32) << 24)
+                     | ((mine[:, 2] < 0).astype(np.uint32) << 28))
+            share = _pad16(np.concatenate([head, tile_bytes,
+                                           words.view(np.uint8)]))
+            meta.append((offset, len(mm), len(mine), len(share)))
+            shares.append(share)
+            offset += len(share)
+    blob = np.concatenate(shares) if offset else np.zeros(_ALIGN, np.uint8)
+    return BlockShares(n_blocks=n_blocks, slices=slices, cw=cw, blob=blob,
+                       meta=np.asarray(meta, np.int32).reshape(-1, 4))
+
+
+def stage_stride(tables: RolloutTables) -> int:
+    """Bytes per batch row of the working state (int8 or fp32), padded
+    by 16 so the MMA's A-fragment loads fall in 32 distinct banks."""
+    return tables.rows_pad * (1 if tables.int8 else 4) + _ALIGN
+
+
+def smem_bytes(tables: RolloutTables, cw: int, share: int = 0) -> int:
+    """Dynamic shared memory of one block: the mbarrier, one batch tile of
+    the working state, the int32 accumulator (int8), each output's
+    u . W_in and x(n-1) (fp32) and, when resident, the block's share."""
+    per_output = (3 if tables.int8 else 2) * 4
+    return (_BAR_BYTES + _MMA_ROWS * stage_stride(tables)
+            + _MMA_ROWS * cw * per_output + share)
+
+
+@dataclasses.dataclass(frozen=True)
+class RolloutGrid:
+    """The launch geometry of one table on one device."""
+
+    n_blocks: int
+    slices: int
+    cw: int
+    share_bytes: int          # the largest block's share of the table
+    resident: bool            # shares kept in shared memory for all T
+    smem: int                 # dynamic shared memory per block
+    shares: BlockShares
+
+
+def plan_grid(tables: RolloutTables, capacity, n_blocks: int | None = None
+              ) -> RolloutGrid:
+    """Choose the grid and the residency of the shares.
+
+    ``capacity(smem)`` is how many blocks of ``smem`` bytes the device
+    holds at once (occupancy x SMs).  Without ``n_blocks`` the grid is the
+    most blocks (the narrowest column slices) whose streaming footprint
+    all fit at once; it depends on the table and the device only, never
+    on the batch, so every call of a table reduces in the same order.
+    The shares are resident when the block's footprint with its share
+    still lets the whole grid be resident; otherwise every block reads its
+    share from global memory each step.
+    """
+    ncb, bk = tables.n_col_blocks, tables.block
+    if n_blocks is None:
+        fits = [s for s in _slice_options(bk)
+                if ncb * s <= capacity(smem_bytes(tables, bk // s))]
+        if not fits:
+            raise ValueError(
+                f"a {tables.rows_pad}-row {tables.mode} state tile exceeds "
+                "one thread block's shared memory")
+        n_blocks = ncb * max(fits)
+    shares = pack_blocks(tables, n_blocks)
+    base = smem_bytes(tables, shares.cw)
+    full = base + shares.share_bytes
+    resident = full <= MAX_SMEM and capacity(full) >= n_blocks
+    return RolloutGrid(n_blocks=n_blocks, slices=shares.slices,
+                       cw=shares.cw, share_bytes=shares.share_bytes,
+                       resident=resident, smem=full if resident else base,
+                       shares=shares)
+
+
+def _device_capacity(int8: bool, device: torch.device):
+    """``capacity(smem)`` of :func:`plan_grid` for the rollout kernel on
+    ``device``: the occupancy API's blocks per SM x the SM count."""
+    lib = _cuda.LIBRARY.load()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def capacity(smem: int) -> int:
+        if smem > MAX_SMEM:
+            return 0
+        per_sm = ctypes.c_int(0)
+        check(lib.rollout_occupancy(int(int8), smem, ctypes.byref(per_sm)),
+              "rollout_occupancy")
+        return per_sm.value * sms
+
+    return capacity
+
+
+def rollout_grid(tables: RolloutTables, device: torch.device,
+                 n_blocks: int | None = None):
+    """The :class:`RolloutGrid` of ``tables`` on a CUDA ``device`` and its
+    device operands (blob, meta), made once per grid."""
+    key = (str(device), n_blocks)
+    if key not in tables.grids:
+        with torch.cuda.device(device):
+            grid = plan_grid(tables, _device_capacity(tables.int8, device),
+                             n_blocks)
+        ops = (torch.as_tensor(grid.shares.blob, device=device),
+               torch.as_tensor(grid.shares.meta, device=device))
+        tables.grids[key] = (grid, ops)
+    return tables.grids[key]
 
 
 # -- readout kernel -----------------------------------------------------------
@@ -141,7 +352,8 @@ def rollout_readout(x: torch.Tensor, w_out: torch.Tensor,
                     out: torch.Tensor | None = None) -> torch.Tensor:
     """``y = x @ W_out`` for a (B, dim) state, by the readout kernel on a
     CUDA tensor (one thread block per row, fixed reduction order) or by
-    the twin on a CPU tensor."""
+    the twin on a CPU tensor.  The rollout kernels compute the same
+    readout inside their own launch (counted on ``fused_launches``)."""
     if not on_cuda(x, w_out, out):
         return rollout_readout_plain(x, w_out, out)
     b, dim = x.shape
@@ -164,6 +376,7 @@ def rollout_readout(x: torch.Tensor, w_out: torch.Tensor,
 
 
 rollout_readout.launches = 0
+rollout_readout.fused_launches = 0
 
 
 # -- shared checks ------------------------------------------------------------
@@ -171,18 +384,26 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def _same_device_tables(dev, tables, *tensors):
+    if tables.device != dev:
+        raise ValueError(f"operands on different devices: {tables.device} "
+                         f"vs {dev}")
+    same_device(dev, *tensors)
+
+
 def check_operands(u_seq, tables, w_in, x0, w_out, final_out, b_tile,
                    want_preds, readout_every):
-    """Everything a step launch needs of its operands but the device
-    type: same device, dtypes, shapes, strides, and a batch tile that fits
-    one thread block.  Raises ``ValueError`` / ``TypeError``."""
+    """Everything a launch needs of its operands but the device type:
+    same device, dtypes, shapes, strides, a batch tile of at most one MMA
+    tile and a state that one block can stage.  Raises ``ValueError`` /
+    ``TypeError``."""
     dev = u_seq.device
-    same_device(dev, tables.tiles, w_in, x0, w_out, final_out)
+    _same_device_tables(dev, tables, w_in, x0, w_out, final_out)
     check_f32(u_seq, w_in, x0, w_out, final_out)
-    want = torch.int8 if tables.int8 else torch.float32
-    if tables.tiles.dtype != want:
+    want = np.dtype(np.int8 if tables.int8 else np.float32)
+    if tables.data_host.dtype != want:
         raise TypeError(f"{tables.mode} tiles must be {want}, "
-                        f"got {tables.tiles.dtype}")
+                        f"got {tables.data_host.dtype}")
     if u_seq.dim() != 3 or not unit_stride(u_seq, 2):
         raise ValueError("u_seq must be (T, B, I) with unit stride over I")
     t, b, i = u_seq.shape
@@ -199,77 +420,76 @@ def check_operands(u_seq, tables, w_in, x0, w_out, final_out, b_tile,
     if w_in.shape != (i, dim) or not w_in.is_contiguous():
         raise ValueError(f"w_in must be a contiguous ({i}, {dim}) tensor")
     if want_preds:
-        if w_out is None or w_out.shape[0] != dim:
-            raise ValueError("want_preds needs a (dim, O) w_out")
+        if w_out is None or w_out.shape[0] != dim or not w_out.is_contiguous():
+            raise ValueError("want_preds needs a contiguous (dim, O) w_out")
         if t % readout_every:
             raise ValueError(f"readout_every={readout_every} must divide "
                              f"T={t}")
     if final_out is not None and (final_out.shape != (b, dim)
                                   or not final_out.is_contiguous()):
         raise ValueError("final_out must be a contiguous (B, dim) tensor")
-    cw = column_slice(bk)
-    smem = (b_tile * bk * 4 + (b_tile * cw * 4 if tables.int8 else 0)
-            + bk * cw * tables.tiles.element_size())
-    if cw * b_tile > _MAX_THREADS or smem > _MAX_SMEM:
-        raise ValueError(f"batch tile {b_tile} x block {bk} exceeds one "
-                         "thread block; lower batch_tile_max")
+    if not 1 <= b_tile <= _MMA_ROWS:
+        raise ValueError(f"batch tile {b_tile} exceeds one thread block's "
+                         f"{_MMA_ROWS}-row MMA tile; lower batch_tile_max")
+    if bk % _MMA_DEPTH or tables.rows_pad >= 1 << 16:
+        raise ValueError(f"the rollout kernel takes blocks of a multiple of "
+                         f"{_MMA_DEPTH} rows and fewer than 65536 state "
+                         f"rows, not {tables.n_col_blocks} x {bk}")
+    if smem_bytes(tables, _MMA_COLS) > MAX_SMEM:
+        raise ValueError(f"a {tables.rows_pad}-row {tables.mode} state tile "
+                         "exceeds one thread block's shared memory")
 
 
-def _launch_rollout(entry: str, counted, u_seq, tables, w_in, x0, w_out, *,
-                    leak, smax, recur_scale, b_tile, readout_every,
-                    want_states, want_preds, want_final, final_out):
-    """The host loop over T: one step kernel launch per step (counted on
-    ``counted.launches``), plus the readout kernel every
-    ``readout_every`` steps.  The state ping-pongs through device buffers
-    (or the states output itself); the last step writes straight into the
-    final-state buffer — the caller's carry when it donates one."""
+def _launch_rollout(counted, u_seq, tables, w_in, x0, w_out=None, *,
+                    leak=1.0, smax=127, recur_scale=1.0, b_tile=16,
+                    readout_every=1, want_states=True, want_preds=False,
+                    want_final=False, final_out=None, n_blocks=None):
+    """One cooperative launch of the persistent kernel for all T steps
+    (counted on ``counted.launches``; with ``want_preds`` the readout is
+    computed inside it, counted on ``rollout_readout.fused_launches``).
+    The last step writes straight into the final-state buffer — the
+    caller's carry when it donates one.  ``n_blocks`` sets the grid
+    (default: :func:`plan_grid`'s choice); the entry points leave it to
+    the default, block-count sweeps and tests call this directly."""
     require_cuda(u_seq)
     check_operands(u_seq, tables, w_in, x0, w_out, final_out, b_tile,
                    want_preds, readout_every)
-    fn = getattr(_cuda.LIBRARY.load(), entry)
     dev = u_seq.device
+    grid, (blob, meta) = rollout_grid(tables, dev, n_blocks)
     t_steps, b, i = u_seq.shape
     dim = x0.shape[1]
-    cuda_stream = stream(dev)
+    o = w_out.shape[1] if want_preds else 0
     states = (torch.empty((t_steps, b, dim), device=dev)
               if want_states else None)
-    preds = (torch.empty((t_steps // readout_every, b, w_out.shape[1]),
-                         device=dev) if want_preds else None)
+    preds = partial = None
+    if want_preds:
+        n_out = t_steps // readout_every
+        preds = torch.empty((n_out, b, o), device=dev)
+        partial = torch.empty((n_out, grid.n_blocks, b, o), device=dev)
     final = None
     if want_final:
         final = (final_out if final_out is not None
                  else torch.empty((b, dim), device=dev))
-    cur = x0.clone() if (final is x0 and t_steps == 1) else x0
-    ping = None
-    consts = (b, dim, i, tables.block, column_slice(tables.block),
-              tables.n_col_blocks, b_tile, 1.0 - leak, leak, float(smax),
-              recur_scale)
-    tables_ptrs = (tables.tiles.data_ptr(), tables.col_ptr.data_ptr(),
-                   tables.terms.data_ptr(), tables.digits.data_ptr())
-    for t in range(t_steps):
-        copy = None
-        if want_final and t == t_steps - 1:
-            nxt = final
-            copy = states[t] if want_states else None
-        elif want_states:
-            nxt = states[t]
-        else:
-            if ping is None:
-                ping = (torch.empty((b, dim), device=dev),
-                        torch.empty((b, dim), device=dev))
-            nxt = ping[t % 2]
-        rc = fn(int(tables.int8), cur.data_ptr(), cur.stride(0),
-                nxt.data_ptr(), nxt.stride(0), _ptr(copy),
-                0 if copy is None else copy.stride(0),
-                u_seq[t].data_ptr(), u_seq.stride(1), w_in.data_ptr(),
-                *tables_ptrs, *consts, cuda_stream)
-        check(rc, entry)
-        counted.launches += 1
-        if want_preds and (t + 1) % readout_every == 0:
-            rollout_readout(nxt, w_out, out=preds[(t + 1) // readout_every - 1])
-        cur = nxt
-    obs.event("kernel_launch", kernel=entry, steps=t_steps, batch=b)
-    obs.inc("kernel_launches_total", t_steps, kernel=entry)
+    ldx = stage_stride(tables)
+    xbuf = torch.empty(2 * b * ldx, dtype=torch.uint8, device=dev)
+    xkeep = torch.empty((b, tables.rows_pad), device=dev)
+    name = counted.__name__
+    rc = _cuda.LIBRARY.load().rollout_run(
+        int(tables.int8), u_seq.data_ptr(), u_seq.stride(0), u_seq.stride(1),
+        w_in.data_ptr(), _ptr(w_out if want_preds else None), x0.data_ptr(),
+        _ptr(states), _ptr(preds), _ptr(final), xbuf.data_ptr(),
+        xkeep.data_ptr(), _ptr(partial), blob.data_ptr(), meta.data_ptr(),
+        t_steps, b, dim, i, o, tables.block, grid.cw, grid.slices, b_tile,
+        readout_every, ldx, tables.rows_pad, int(grid.resident),
+        grid.n_blocks, grid.smem, 1.0 - leak, leak, float(smax), recur_scale,
+        stream(dev))
+    check(rc, name)
+    counted.launches += 1
+    if want_preds:
+        rollout_readout.fused_launches += 1
+    obs.event("kernel_launch", kernel=name, steps=t_steps, batch=b,
+              blocks=grid.n_blocks, resident=grid.resident)
+    obs.inc("kernel_launches_total", kernel=name)
     return _pack(states, preds, final)
 
 
@@ -329,7 +549,7 @@ def _plain_rollout(u_seq, tables, w_in, x0, w_out=None, *, leak=1.0,
     epilogue uses separately rounded operations, as the kernel does, so
     every element goes through the kernel's rounding sequence.
     """
-    same_device(u_seq.device, tables.tiles, w_in, x0, w_out, final_out)
+    _same_device_tables(u_seq.device, tables, w_in, x0, w_out, final_out)
     t_steps, b, i = u_seq.shape
     dim = x0.shape[-1]
     rpad = tables.n_col_blocks * tables.block
@@ -369,7 +589,7 @@ def _plain_rollout(u_seq, tables, w_in, x0, w_out=None, *, leak=1.0,
                  torch.stack(preds) if want_preds else None, final)
 
 
-def _dispatch(entry, counted, plain, u_seq, tables, w_in, x0, w_out=None, *,
+def _dispatch(counted, plain, u_seq, tables, w_in, x0, w_out=None, *,
               leak=1.0, smax=127, recur_scale=1.0, b_tile=16,
               readout_every=1, want_states=True, want_preds=False,
               want_final=False, final_out=None):
@@ -381,7 +601,7 @@ def _dispatch(entry, counted, plain, u_seq, tables, w_in, x0, w_out=None, *,
               final_out=final_out)
     if u_seq.device.type == "cpu":
         return plain(u_seq, tables, w_in, x0, w_out, **kw)
-    return _launch_rollout(entry, counted, u_seq, tables, w_in, x0, w_out,
+    return _launch_rollout(counted, u_seq, tables, w_in, x0, w_out,
                            b_tile=b_tile, **kw)
 
 
@@ -405,7 +625,7 @@ def reservoir_rollout(u_seq: torch.Tensor, tables: RolloutTables,
         w_out: (dim, O) readout weights (required iff ``want_preds``).
         leak, smax, recur_scale: Eq. 1's leak; int8 state range and the
             ``scale / smax`` factor restoring float pre-activations.
-        b_tile: batch rows per thread block.
+        b_tile: batch rows per tile (at most 16, one MMA tile).
         readout_every: emit predictions every k steps (k must divide T).
         want_states / want_preds / want_final: which outputs to return.
         final_out: optional (B, dim) buffer that receives x(T) in place
@@ -414,9 +634,8 @@ def reservoir_rollout(u_seq: torch.Tensor, tables: RolloutTables,
     Returns states (T, B, dim), preds (T // k, B, O) and the final state
     (B, dim), in that order — bare when exactly one is requested.
     """
-    return _dispatch("reservoir_rollout_step", reservoir_rollout,
-                     reservoir_rollout_plain, u_seq, tables, w_in, x0,
-                     w_out, **kw)
+    return _dispatch(reservoir_rollout, reservoir_rollout_plain, u_seq, tables,
+                     w_in, x0, w_out, **kw)
 
 
 reservoir_rollout.launches = 0

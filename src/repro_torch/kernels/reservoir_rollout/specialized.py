@@ -9,13 +9,17 @@ tile product per kept (plane, block).  This kernel consumes a
   of ``width`` shifted plane products;
 * ``SA`` terms add a sparse plane's few set digits as ``±(x << w)``
   shift-adds (integer atomics into a shared accumulator on the GPU);
-* the batch axis splits into tiles of at most ``batch_tile_max`` rows, one
-  thread block per (column slice of an output column block, batch tile).
+* the batch axis splits into tiles of at most ``batch_tile_max`` rows
+  (at most 16 on the GPU, one MMA tile), which every thread block walks
+  in turn for its own column slice.
 
 int8 terms accumulate in exact int32, so every schedule is bit-identical
 to the generic kernel; fp32 terms keep its ascending-row order.  The
 program's regime (``resident`` / ``pipelined``) changes only how columns
-group into bands: the CUDA kernel reads every band's tiles through L2.
+group into bands, which only the plain twin walks: the CUDA kernel
+repacks every band's tiles into per-thread-block shares
+(:func:`~.reservoir_rollout.pack_blocks`) and keeps them in shared memory
+when they fit, whatever the regime.
 """
 
 from __future__ import annotations
@@ -48,9 +52,8 @@ def specialized_rollout(u_seq: torch.Tensor, tables: RolloutTables,
     arguments and the outputs are those of
     :func:`~.reservoir_rollout.reservoir_rollout`.
     """
-    return _dispatch("specialized_rollout_step", specialized_rollout,
-                     specialized_rollout_plain, u_seq, tables, w_in, x0,
-                     w_out, **kw)
+    return _dispatch(specialized_rollout, specialized_rollout_plain, u_seq,
+                     tables, w_in, x0, w_out, **kw)
 
 
 specialized_rollout.launches = 0

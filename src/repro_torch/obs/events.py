@@ -12,7 +12,7 @@ Well-known kinds emitted by the instrumented sites:
 
 ====================  ======================================================
 ``kernel_build``      the rollout kernels compiled (or loaded) — once
-``kernel_launch``     one kernel rollout call (``steps`` launches)
+``kernel_launch``     one kernel rollout call (one launch of T steps)
 ``engine_build``      a ReservoirEngine constructed
 ``engine_cache_miss`` ``engine_for`` built instead of reusing
 ``plan_lowering``     ``plan_for`` lowered a matrix (cache miss)

@@ -10,9 +10,10 @@ re-fetched.  ``specialize_rollout`` turns one
 * **regime selection** — when every kept weight tile fits the byte budget
   the program is ``resident`` (one band); otherwise it is ``pipelined``:
   output columns are packed into bands of at most half the budget.  The
-  CUDA kernels read every band through L2 either way; the regime decides
-  only how columns group into bands (staging a band in shared memory is
-  later kernel work).
+  CUDA kernel repacks every band into per-thread-block shares either way
+  (kept in shared memory when they fit), so the regime changes nothing it
+  does: it decides only how columns group into bands, which only the
+  plain twin and the JAX reference walk.
 * **constant-propagated CSD folding** (int8 modes) — the per-plane
   ``2^w`` scales and digit signs are compile-time constants, so all planes
   of a block that stay on the matmul path fold into ONE int8 tile
@@ -25,8 +26,8 @@ re-fetched.  ``specialize_rollout`` turns one
   (``acc[:, j] += ±(x[:, i] << w)``), the software mirror of the paper's
   synthesized adder trees.
 * **batch tiling** — the batch axis splits into tiles of at most
-  ``batch_tile_max`` rows; each CUDA thread block owns one batch tile of
-  a column slice of one output column block.
+  ``batch_tile_max`` rows; each CUDA thread block owns a column slice of
+  one output column block and walks the batch tiles in turn.
 
 Every schedule is arithmetic-order-safe: int8 terms accumulate in exact
 int32 (any order gives the same bits) and fp32 terms keep the banded
