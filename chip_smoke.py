@@ -37,7 +37,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    take (its bound); B1 and B2 per launch of T = 32 and 64 steps (reported
    per step), with each grid's shared memory per block, its host enqueue
    and a sweep of block counts; the standalone readout kernel against its
-   twin; B3-B5 at batch 16 and 1.
+   twin; B3-B5 at batch 16 and 1, each with its device time per launch
+   and its library call's (profiler), B3 and B4 also with a cold L2 (a
+   128 MiB buffer written before every launch).
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  The last line is ``{"ok": true, "device": {...}}``.
@@ -827,6 +829,18 @@ class Smoke:
         qf = torch.as_tensor(params.w.q, device=self.dev).to(torch.float32)
         csr_t = dense.t().contiguous().to_sparse_csr()     # cuSPARSE: M^T
         kept = sum(plan.plane_mask)
+        g3, g4 = b3op.packed.grid, b4op.packed.grid
+        grids = {
+            "bitplane_gemv": dict(
+                n_blocks=g3.n_blocks, columns_per_block=8 * g3.groups,
+                share_bytes=g3.share_bytes, stages=g3.n_stages,
+                smem_bytes=b3op.packed.launch[True][1]),
+            "bcsr_matmul": dict(
+                n_blocks=g4.n_blocks, columns_per_block=g4.cw,
+                cluster=g4.parts, tiles_per_block=g4.max_tiles,
+                smem_bytes=g4.smem(16))}
+        for name, g in grids.items():
+            print(f"  {name} grid: {g}")
         x16, xq16 = self.fixed_inputs
         i_dim = cfg.input_dim
         gen = torch.Generator(device="cpu").manual_seed(31)
@@ -871,15 +885,36 @@ class Smoke:
             calls = {"bitplane_gemv": lambda: b3op(xq),
                      "bcsr_matmul": lambda: b4op(x),
                      "reservoir_step": lambda: fr.step(x, u, out=out)}
+            libs = {"bitplane_gemv": lambda: xq.float() @ qf,
+                    "bcsr_matmul": lambda: x @ dense,
+                    "reservoir_step": lambda: x @ dense}
+            kernels = {"bitplane_gemv": "bitplane_gemv_kernel",
+                       "bcsr_matmul": "bcsr_matmul_kernel",
+                       "reservoir_step": "reservoir_step_kernel"}
             for name, call in calls.items():
                 rec = self.kernels[name] if key is None else \
                     self.kernels[name][f"batch{batch}"]
                 rec["host_ms"] = self._host_ms(call, 50)
-                print(f"  {name} b{batch}: host enqueue "
-                      f"{rec['host_ms'] * 1e3:.1f} us/launch")
-            self._profile([*calls.values(), lambda: xq.float() @ qf,
-                           lambda: x @ dense,
-                           lambda: torch.sparse.mm(csr_t, xt)])
+                rec["device_us_per_launch"] = self._device_us(
+                    call, kernels[name], n=20)
+                rec["library_device_us"] = self._device_us(libs[name], "",
+                                                           n=20)
+                line = (f"  {name} b{batch}: device "
+                        f"{rec['device_us_per_launch']:.3f} us/launch "
+                        f"(library call {rec['library_device_us']:.3f} us)")
+                if name != "reservoir_step":
+                    rec["device_us_per_launch_cold_l2"] = self._device_us(
+                        call, kernels[name], n=20, flush=True)
+                    line += (f", cold L2 "
+                             f"{rec['device_us_per_launch_cold_l2']:.3f} us")
+                print(f"{line}, host enqueue {rec['host_ms'] * 1e3:.1f} "
+                      f"us/launch on {self.card}")
+            rec = self.kernels["bcsr_matmul"] if key is None else \
+                self.kernels["bcsr_matmul"][f"batch{batch}"]
+            rec["cusparse_device_us"] = self._device_us(
+                lambda: torch.sparse.mm(csr_t, xt), "", n=20)
+        for name, g in grids.items():
+            self.kernels[name]["grid"] = g
 
     def _host_ms(self, fn, n):
         """ms per call of ``fn`` on the host clock with no device sync
@@ -907,7 +942,7 @@ class Smoke:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / n
 
-    def _profile(self, calls):
+    def _profile(self, calls, quiet=False):
         """Device time per kernel launch from a torch.profiler trace (the
         CUDA-event times include any gaps between launches)."""
         torch = self.torch
@@ -921,15 +956,38 @@ class Smoke:
                 if e.count and e.device_time_total > 0]
         if not rows:
             print("profiler: no device kernels recorded")
-        for e in rows:
+        for e in [] if quiet else rows:
             print(f"  profiler {e.key[:60]}: {e.count} launches, "
                   f"{e.device_time_total / e.count:.2f} us device time each")
         return rows
 
-    def _device_us(self, call, kernel: str):
-        """Device µs of one call's launches of ``kernel`` (profiler)."""
-        rows = self._profile([call])
-        return sum(e.device_time_total for e in rows if kernel in e.key)
+    def _device_us(self, call, kernel: str, n: int = 1, flush=False):
+        """Device µs per call of the launches of ``kernel`` (every kernel
+        the call launches with ``kernel=""``), from a profile of ``n``
+        calls; with ``flush`` a 128 MiB buffer is written before each call
+        (the 50 MB L2 holds none of the operands: cold L2).  A named
+        kernel must show one launch per call (every call at least one
+        launch), else the profile is taken again (at most three times)."""
+        torch = self.torch
+        if flush:
+            buf = torch.empty(32 << 20, dtype=torch.float32, device=self.dev)
+
+            def cold():
+                buf.fill_(1.0)
+                call()
+            calls = [cold] * n
+        else:
+            calls = [call] * n
+        call()
+        for _ in range(3):
+            rows = [e for e in self._profile(calls, quiet=n > 1)
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and kernel in e.key]
+            count = sum(e.count for e in rows)
+            if count == n or (not kernel and count >= n):
+                return sum(e.device_time_total for e in rows) / n
+        raise RuntimeError(f"the profiler did not record {n} launches of "
+                           f"{kernel}")
 
     def _record(self, name, ms, plain_ms, library_ms, bytes_, ops_s,
                 batch=None):

@@ -11,11 +11,12 @@ import pathlib
 
 import torch
 
-__all__ = ["COMMON_HEADER", "MAX_SMEM", "WARPS", "COLS", "batch_tile",
-           "check_f32", "check_smem", "on_cuda", "overlaps", "require_cuda",
-           "same_device", "stream", "unit_stride"]
+__all__ = ["COMMON_HEADER", "HOPPER_HEADER", "MAX_SMEM", "WARPS", "COLS",
+           "batch_tile", "check_f32", "check_smem", "on_cuda", "overlaps",
+           "require_cuda", "same_device", "stream", "unit_stride"]
 
 COMMON_HEADER = pathlib.Path(__file__).resolve().parent / "common.cuh"
+HOPPER_HEADER = pathlib.Path(__file__).resolve().parent / "hopper.cuh"
 COLS = 8                  # threadIdx.x of a fixed-matrix thread block
 WARPS = 8                 # 8 x 32 threads
 MAX_SMEM = 227 * 1024     # opt-in dynamic shared memory per block (H100)

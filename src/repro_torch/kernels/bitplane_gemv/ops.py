@@ -1,10 +1,12 @@
 """ExecutionPlan -> digit planes -> bitplane gemv.
 
 The digit decomposition and whole-plane cull mask come from the shared
-:mod:`repro_torch.plan` lowering; this wrapper only places the planes on
-the device once and dispatches.  Nothing is padded to a block multiple:
-the kernel reads only the digit rows ``x`` covers, and its columns only
-to the next multiple of 4 (one ``char4`` of a plane row).
+:mod:`repro_torch.plan` lowering.  On a CUDA device the wrapper packs the
+kept planes once, at construction, into the kernel's per-block shares
+(:func:`~repro_torch.kernels.bitplane_gemv.bitplane_gemv.pack_planes`), so
+a call is the operand checks, one output allocation and one launch.  The
+planes themselves reach the device only if the plain twin asks for them
+(:attr:`BitplaneGemv.digits`).
 """
 
 from __future__ import annotations
@@ -14,9 +16,9 @@ import torch
 
 from repro_torch.core.sparse import FixedMatrix
 from repro_torch.device import resolve_device
-from repro_torch.kernels.bitplane_gemv.bitplane_gemv import bitplane_gemv
+from repro_torch.kernels.bitplane_gemv.bitplane_gemv import (bitplane_gemv,
+                                                             pack_planes)
 from repro_torch.plan import ExecutionPlan, plan_for
-from repro_torch.plan.plan import pad_axis
 
 __all__ = ["BitplaneGemv", "digits_from_fixed"]
 
@@ -30,9 +32,9 @@ class BitplaneGemv:
     """Precompiled digit-plane multiplier for one fixed matrix.
 
     Offline (init): pull the planes and the per-plane cull mask from the
-    ExecutionPlan and place the planes on ``device`` (default ``cuda``;
-    ``"cpu"`` runs the plain twin).  Online (``__call__``): one kernel
-    launch, exact int32 result.
+    ExecutionPlan and, on ``device`` ``cuda`` (the default), pack the kept
+    planes for the kernel; ``"cpu"`` runs the plain twin.  Online
+    (``__call__``): one kernel launch, exact int32 result.
     """
 
     def __init__(self, source: FixedMatrix | ExecutionPlan, device=None):
@@ -40,11 +42,20 @@ class BitplaneGemv:
         self.plan = plan
         self.device = resolve_device(device)
         self.rows, self.cols = plan.shape
-        self.digits = torch.as_tensor(np.ascontiguousarray(
-            pad_axis(plan.digits, 2, -(-self.cols // 4) * 4)),
-            device=self.device)
         # Whole-plane culling: CSD often leaves high planes empty.
         self.plane_mask = plan.plane_mask
+        self.packed = (pack_planes(plan.digits, self.plane_mask, self.device)
+                       if self.device.type == "cuda" else None)
+        self._digits = None
+
+    @property
+    def digits(self) -> torch.Tensor:
+        """The (W, rows, cols) int8 planes on the device (what the twin
+        reads), made at first use."""
+        if self._digits is None:
+            self._digits = torch.as_tensor(
+                np.ascontiguousarray(self.plan.digits), device=self.device)
+        return self._digits
 
     def __call__(self, x) -> torch.Tensor:
         """x: (B, rows) int8/int32 -> (B, cols) int32 exact."""
@@ -52,5 +63,5 @@ class BitplaneGemv:
         if x.dim() != 2 or x.shape[1] != self.rows:
             raise ValueError(f"x must be (B, {self.rows}), got "
                              f"{tuple(x.shape)}")
-        y = bitplane_gemv(x, self.digits, plane_mask=self.plane_mask)
-        return y[:, : self.cols]
+        planes = self.digits if self.packed is None else self.packed
+        return bitplane_gemv(x, planes, plane_mask=self.plane_mask)

@@ -8,7 +8,7 @@ import ctypes
 import pathlib
 
 from repro_torch.kernels._build import CudaLibrary
-from repro_torch.kernels._launch import COMMON_HEADER
+from repro_torch.kernels._launch import COMMON_HEADER, HOPPER_HEADER
 
 __all__ = ["LIBRARY"]
 
@@ -35,4 +35,4 @@ LIBRARY = CudaLibrary(
     {"rollout_run": _RUN_ARGTYPES,
      "rollout_occupancy": [_I, _I, ctypes.POINTER(_I)],
      "rollout_readout": _READOUT_ARGTYPES},
-    headers=(COMMON_HEADER,))
+    headers=(COMMON_HEADER, HOPPER_HEADER))

@@ -90,8 +90,14 @@
 #include <stdint.h>
 
 #include "../../common.cuh"
+#include "../../hopper.cuh"
 
 namespace cg = cooperative_groups;
+using hopper::bulk_load;
+using hopper::fence_async_global;
+using hopper::mbar_wait;
+using hopper::mma_s8;
+using hopper::smem_u32;
 
 namespace {
 
@@ -125,47 +131,6 @@ __device__ __forceinline__ int quantize(float v, float smax) {
   float q = rintf(__fmul_rn(v, smax));
   q = fminf(fmaxf(q, -smax - 1.0f), smax);
   return __float2int_rn(q);
-}
-
-// -- mbarrier + bulk copy (sm_90) --------------------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-// Orders this thread's generic-proxy global accesses with the bulk
-// copies (async proxy) around the grid barrier.
-__device__ __forceinline__ void fence_async_global() {
-  asm volatile("fence.proxy.async.global;" ::: "memory");
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
-                                       uint32_t a2, uint32_t a3, uint2 b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.x), "r"(b.y));
 }
 
 __device__ __forceinline__ uint32_t ld32(const unsigned char* p) {
@@ -227,9 +192,8 @@ rollout_kernel(const Params p) {
   cg::grid_group grid = cg::this_grid();
 
   if (tid == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar)
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    hopper::mbar_init(bar, 1);
+    hopper::fence_mbar_init();
   }
   __syncthreads();
   const bool load_share = p.resident && meta.w > 0;

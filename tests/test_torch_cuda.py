@@ -252,7 +252,7 @@ def _fixed(dim_r, dim_c, sparsity, block, seed=0):
 
 @pytest.mark.parametrize("shape,block", [((256, 256), 64), ((200, 150), 64),
                                          ((1024, 1024), 128)])
-@pytest.mark.parametrize("batch", [1, 3, 16, 20])
+@pytest.mark.parametrize("batch", [1, 3, 16, 20, 33])
 @pytest.mark.parametrize("x_dtype", [torch.int8, torch.int32])
 def test_bitplane_gemv_kernel_exact(cuda, shape, block, batch, x_dtype):
     fm = _fixed(*shape, 0.9, block)
@@ -274,7 +274,7 @@ def test_bitplane_gemv_kernel_exact(cuda, shape, block, batch, x_dtype):
                                             ((256, 512), 0.999),
                                             ((200, 300), 0.9),
                                             ((1024, 1024), 0.95)])
-@pytest.mark.parametrize("batch", [1, 5, 16])
+@pytest.mark.parametrize("batch", [1, 5, 16, 33])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16,
                                      torch.int8, torch.int32])
 def test_bcsr_matmul_kernel_matches_twin(cuda, shape, sparsity, batch,
@@ -301,6 +301,62 @@ def test_bcsr_matmul_kernel_matches_twin(cuda, shape, sparsity, batch,
         assert (y - want).abs().max().item() <= 1e-4
     else:
         assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.int8, torch.int32])
+def test_bitplane_gemv_kernel_culled_planes(cuda, x_dtype):
+    """A matrix whose high planes are all zero: only the kept planes are
+    packed, and the product is exact; raw planes on the card (packed for
+    the one call) give the same bits."""
+    rng = np.random.default_rng(3)
+    v = rng.integers(0, 4, size=(256, 192)).astype(np.float64)
+    v[0, 0] = 127
+    fm = FixedMatrix.compile(v, weight_bits=8, mode="csd", block=64, rng=rng)
+    op = BitplaneGemv(fm, device=cuda)
+    kept = sum(op.plane_mask)
+    assert 0 < kept < len(op.plane_mask)
+    assert op.packed.blob.numel() == kept * 256 * 192
+    x = torch.as_tensor(rng.integers(-128, 128, (33, 256)), dtype=x_dtype,
+                        device=cuda)
+    y = op(x)
+    raw = bitplane_gemv(x, op.digits, plane_mask=op.plane_mask)
+    torch.cuda.synchronize()
+    assert torch.equal(y, fm.matvec_int_exact(x))
+    assert torch.equal(raw, y)
+
+
+def test_bitplane_gemv_kernel_streams_a_large_share(cuda):
+    """dim 4096: each block's 1 MiB share streams through a ring of
+    stage buffers (int8 x, exact); an int32 x tile of that width does not
+    fit one block and is refused."""
+    fm = _fixed(4096, 4096, 0.99, 128)
+    op = BitplaneGemv(fm, device=cuda)
+    grid = op.packed.grid
+    assert grid.buffers(True) < grid.n_stages
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.integers(-128, 128, (20, 4096)),
+                        dtype=torch.int8, device=cuda)
+    y = op(x)
+    torch.cuda.synchronize()
+    assert torch.equal(y, fm.matvec_int_exact(x))
+    before = bitplane_gemv.launches
+    with pytest.raises(ValueError, match="do not fit"):
+        op(x.to(torch.int32))
+    assert bitplane_gemv.launches == before
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+def test_bcsr_matmul_fp32_is_deterministic(cuda, batch):
+    """Every float sum has a fixed order: two calls give the same bits."""
+    rng = np.random.default_rng(9)
+    d = random_sparse_matrix(1024, 1024, 0.95, rng).astype(np.float32)
+    op = BcsrMatmul(BlockSparse.from_dense(d, 128), device=cuda)
+    x = torch.as_tensor(rng.standard_normal((batch, 1024)),
+                        dtype=torch.float32, device=cuda)
+    first = op(x)
+    second = op(x)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("dim,batch", [(128, 1), (256, 3), (800, 16),

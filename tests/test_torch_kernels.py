@@ -125,15 +125,14 @@ def _ragged_pair(seed=2):
 @pytest.mark.parametrize("x_dtype", [np.int8, np.int32])
 def test_bitplane_gemv_ops_ragged(x_dtype):
     """The 200 x 150 wrapper case: the reference pads digits and x to
-    128-blocks (256 x 256); the port pads only the columns to 152 (a
-    multiple of 4) and reads the rows x covers.  The outputs are
-    identical."""
+    128-blocks (256 x 256); the port keeps the planes unpadded (its kernel
+    reads packed shares, see tests/test_torch_fixed_pack.py) and reads the
+    rows x covers.  The outputs are identical."""
     jfm, fm = _ragged_pair()
     jop, op = JBitplaneGemv(jfm), BitplaneGemv(fm, device=CPU)
-    assert tuple(op.digits.shape) == (plan_for(fm).width, 200, 152)
-    np.testing.assert_array_equal(op.digits[:, :, :150].numpy(),
+    assert tuple(op.digits.shape) == (plan_for(fm).width, 200, 150)
+    np.testing.assert_array_equal(op.digits.numpy(),
                                   np.asarray(jop.digits)[:, :200, :150])
-    assert not op.digits[:, :, 150:].any()
     assert op.plane_mask == jop.plane_mask
     x = np.random.default_rng(3).integers(-128, 128, (3, 200)).astype(x_dtype)
     got = op(_t(x))
@@ -156,16 +155,24 @@ def test_padded_digits_identical(block_r, block_c):
 
 @pytest.mark.parametrize("r,c", [(128, 128), (200, 150), (96, 64)])
 def test_bitplane_gemv_ops_digits_fit_the_kernel(r, c):
-    """The planes BitplaneGemv hands the kernel: contiguous, C padded to
-    the next multiple of 4 only (one char4 per plane row), rows as is."""
+    """What BitplaneGemv holds for the twin (the plan's planes, contiguous,
+    unpadded) and what it packs for the kernel: the kept planes only, rows
+    to a multiple of 32 and columns to whole 8-column groups, one share
+    per block in whole 256-byte fragments."""
     rng = np.random.default_rng(r + c)
     fm = FixedMatrix.compile(random_sparse_matrix(r, c, 0.9, rng),
                              mode="csd", block=64, rng=rng)
     op = BitplaneGemv(fm, device=CPU)
+    assert op.packed is None                    # the CPU runs the twin
     assert op.digits.is_contiguous() and op.digits.dtype == torch.int8
-    assert tuple(op.digits.shape) == (plan_for(fm).width, r, -(-c // 4) * 4)
-    np.testing.assert_array_equal(op.digits[:, :, :c].numpy(),
-                                  plan_for(fm).digits)
+    assert tuple(op.digits.shape) == (plan_for(fm).width, r, c)
+    np.testing.assert_array_equal(op.digits.numpy(), plan_for(fm).digits)
+    planes = tuple(w for w, k in enumerate(op.plane_mask) if k)
+    grid = b3.plane_grid(r, c, planes, 132)
+    blob = b3.pack_blob(plan_for(fm).digits, grid)
+    assert grid.share_bytes % 256 == 0
+    assert blob.size == grid.n_blocks * grid.share_bytes == (
+        len(planes) * -(-r // 32) * 32 * grid.n_blocks * grid.groups * 8)
 
 
 def test_bitplane_gemv_matches_spatial_emulator():
@@ -185,16 +192,6 @@ def test_bitplane_gemv_matches_spatial_emulator():
         res = simulate_gemv(fm.q, x[b], input_bits=8, weight_bits=8,
                             planes=fm.planes)
         np.testing.assert_array_equal(got[b], res.output)
-
-
-def test_cluster_split_fills_the_card():
-    # LARGE_1024: 32 column slices, one batch tile, 132 SMs -> 4 parts
-    # (128 blocks, one wave)
-    assert b3.cluster_split(1024, 32, 1, 132) == 4
-    assert b3.cluster_split(1024, 32, 2, 132) == 2
-    assert b3.cluster_split(1024, 2, 1, 132) == 8      # at most 8 per cluster
-    assert b3.cluster_split(64, 2, 1, 132) == 2        # >= 32 rows per part
-    assert b3.cluster_split(4096, 200, 4, 132) == 1
 
 
 # -- B4 bcsr_matmul -----------------------------------------------------------
