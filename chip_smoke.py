@@ -37,8 +37,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    take (its bound); B1 and B2 per launch of T = 32 and 64 steps (reported
    per step), with each grid's shared memory per block, its host enqueue
    and a sweep of block counts; the standalone readout kernel against its
-   twin; B3-B5 at batch 16 and 1, each with its device time per launch
-   and its library call's (profiler), B3 and B4 also with a cold L2 (a
+   twin; B3-B5 at batch 16 and 1, each with its grid, its device time per
+   launch and its library call's (profiler), and with a cold L2 (a
    128 MiB buffer written before every launch).
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -830,6 +830,7 @@ class Smoke:
         csr_t = dense.t().contiguous().to_sparse_csr()     # cuSPARSE: M^T
         kept = sum(plan.plane_mask)
         g3, g4 = b3op.packed.grid, b4op.packed.grid
+        b5_grids = {bt: self._b5_grid(fr.packed.grid(bt)) for bt in (16, 1)}
         grids = {
             "bitplane_gemv": dict(
                 n_blocks=g3.n_blocks, columns_per_block=8 * g3.groups,
@@ -838,9 +839,11 @@ class Smoke:
             "bcsr_matmul": dict(
                 n_blocks=g4.n_blocks, columns_per_block=g4.cw,
                 cluster=g4.parts, tiles_per_block=g4.max_tiles,
-                smem_bytes=g4.smem(16))}
+                smem_bytes=g4.smem(16)),
+            "reservoir_step": b5_grids[16]}
         for name, g in grids.items():
             print(f"  {name} grid: {g}")
+        print(f"  reservoir_step grid at batch 1: {b5_grids[1]}")
         x16, xq16 = self.fixed_inputs
         i_dim = cfg.input_dim
         gen = torch.Generator(device="cpu").manual_seed(31)
@@ -902,11 +905,10 @@ class Smoke:
                 line = (f"  {name} b{batch}: device "
                         f"{rec['device_us_per_launch']:.3f} us/launch "
                         f"(library call {rec['library_device_us']:.3f} us)")
-                if name != "reservoir_step":
-                    rec["device_us_per_launch_cold_l2"] = self._device_us(
-                        call, kernels[name], n=20, flush=True)
-                    line += (f", cold L2 "
-                             f"{rec['device_us_per_launch_cold_l2']:.3f} us")
+                rec["device_us_per_launch_cold_l2"] = self._device_us(
+                    call, kernels[name], n=20, flush=True)
+                line += (f", cold L2 "
+                         f"{rec['device_us_per_launch_cold_l2']:.3f} us")
                 print(f"{line}, host enqueue {rec['host_ms'] * 1e3:.1f} "
                       f"us/launch on {self.card}")
             rec = self.kernels["bcsr_matmul"] if key is None else \
@@ -915,6 +917,16 @@ class Smoke:
                 lambda: torch.sparse.mm(csr_t, xt), "", n=20)
         for name, g in grids.items():
             self.kernels[name]["grid"] = g
+        self.kernels["reservoir_step"]["batch1"]["grid"] = b5_grids[1]
+
+    @staticmethod
+    def _b5_grid(g) -> dict:
+        """What B5's launch at one batch tile looks like: blocks, columns
+        and W rows per block, cluster parts, share and shared-memory
+        bytes per block."""
+        return dict(n_blocks=g.n_blocks, columns_per_block=g.cw,
+                    cluster=g.parts, rows_per_block=g.rows,
+                    share_bytes=g.share_bytes, smem_bytes=g.smem)
 
     def _host_ms(self, fn, n):
         """ms per call of ``fn`` on the host clock with no device sync

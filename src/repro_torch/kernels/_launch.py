@@ -1,5 +1,5 @@
-"""What every kernel wrapper checks before a launch, and the launch
-geometry the fixed-matrix kernels share (``common.cuh``).
+"""What every kernel wrapper checks before a launch, and the limits the
+kernels share (``common.cuh``).
 
 A wrapper takes the plain twin for CPU operands and the kernel for CUDA
 ones; anything else, or operands on different devices, raises.
@@ -11,14 +11,13 @@ import pathlib
 
 import torch
 
-__all__ = ["COMMON_HEADER", "HOPPER_HEADER", "MAX_SMEM", "WARPS", "COLS",
+__all__ = ["COMMON_HEADER", "HOPPER_HEADER", "MAX_SMEM", "WARPS",
            "batch_tile", "check_f32", "check_smem", "on_cuda", "overlaps",
            "require_cuda", "same_device", "stream", "unit_stride"]
 
 COMMON_HEADER = pathlib.Path(__file__).resolve().parent / "common.cuh"
 HOPPER_HEADER = pathlib.Path(__file__).resolve().parent / "hopper.cuh"
-COLS = 8                  # threadIdx.x of a fixed-matrix thread block
-WARPS = 8                 # 8 x 32 threads
+WARPS = 8                 # 256 threads per fixed-matrix thread block
 MAX_SMEM = 227 * 1024     # opt-in dynamic shared memory per block (H100)
 
 

@@ -1,7 +1,8 @@
 // The Hopper (sm_90) primitives the kernels share: bulk copies into shared
 // memory completed on an mbarrier (cp.async.bulk, the 1-D form of the
-// Tensor Memory Accelerator), the proxy fence around them, and the int8
-// tensor-core product mma.sync.m16n8k32.
+// Tensor Memory Accelerator), the proxy fence around them, stores into
+// another block's shared memory in the cluster completed on its mbarrier
+// (st.async), and the int8 tensor-core product mma.sync.m16n8k32.
 //
 // Fragment layouts of mma.sync.m16n8k32.row.col.s32.s8.s8.s32 (PTX ISA),
 // lane = 4 * gid + tig:
@@ -36,16 +37,42 @@ __device__ __forceinline__ void fence_mbar_init() {
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 }
 
+// One thread: expect `bytes` more on `bar` (and arrive once).
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
 // One thread: expect `bytes` on `bar` and copy them from global `src` to
 // shared `dst` (both 16-byte aligned, bytes a multiple of 16).
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
                                           uint32_t bytes, uint32_t bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
+  mbar_expect_tx(bar, bytes);
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];"
       :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// The address of this block's shared-memory `addr` in block `rank` of the
+// cluster (shared::cluster window).
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// 16 bytes into (possibly another block's) shared memory at cluster
+// address `dst`, counted as complete_tx on that block's mbarrier `bar`
+// (a cluster address too).
+__device__ __forceinline__ void st_async(uint32_t dst, float4 v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 "
+      "[%0], {%1, %2, %3, %4}, [%5];"
+      :: "r"(dst), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
 }
 
 // Waits until the phase of `bar` with this parity has completed.

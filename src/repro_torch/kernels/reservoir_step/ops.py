@@ -1,9 +1,11 @@
 """Dense reservoir matrix -> fused step kernel, one launch per step.
 
 The JAX wrapper pads W and W_in to block multiples and drives the step
-with ``lax.scan``; here the kernel masks the ragged edge instead, and
-:meth:`FusedReservoir.run` is a Python loop over T with one launch per
-step.
+with ``lax.scan``; here W is packed once, at construction on a CUDA
+device, into the kernel's per-block shares (zero past the matrix, the
+ragged edge masked at the store), and :meth:`FusedReservoir.run` is a
+Python loop over T with one launch per step.  ``w`` stays the dense
+matrix: the plain twin reads it.
 """
 
 from __future__ import annotations
@@ -11,7 +13,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.reservoir_step.reservoir_step import reservoir_step
+from repro_torch.kernels.reservoir_step.reservoir_step import (
+    pack_weights, reservoir_step)
 
 __all__ = ["FusedReservoir"]
 
@@ -28,14 +31,16 @@ class FusedReservoir:
         self.w_in = as_t(w_in)
         self.dim = self.w.shape[0]
         self.leak = float(leak)
+        self.packed = (pack_weights(self.w, self.device)
+                       if self.device.type == "cuda" else None)
 
     def step(self, x, u, out: torch.Tensor | None = None) -> torch.Tensor:
         """x: (B, dim), u: (B, I) -> (B, dim) (written into ``out`` when
         given)."""
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         u = torch.as_tensor(u, dtype=torch.float32, device=self.device)
-        return reservoir_step(x, self.w, u, self.w_in, leak=self.leak,
-                              out=out)
+        w = self.w if self.packed is None else self.packed
+        return reservoir_step(x, w, u, self.w_in, leak=self.leak, out=out)
 
     def run(self, inputs, x0=None) -> torch.Tensor:
         """inputs: (T, B, I) -> states (T, B, dim).

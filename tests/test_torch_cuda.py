@@ -360,8 +360,16 @@ def test_bcsr_matmul_fp32_is_deterministic(cuda, batch):
 
 
 @pytest.mark.parametrize("dim,batch", [(128, 1), (256, 3), (800, 16),
-                                       (1024, 16), (1024, 20)])
+                                       (1024, 16), (1024, 20), (1024, 33),
+                                       (1024, 1), (800, 1), (800, 33),
+                                       (512, 5), (3104, 16), (3112, 16),
+                                       (4096, 1)])
 def test_reservoir_step_kernel_matches_twin(cuda, dim, batch):
+    """Over the picker's grids: batch 20 and 33 take a second grid axis,
+    dim 800 a ragged last column slice, dim 512 narrower slices (to keep
+    a quarter of the SMs busy); at batch 16 dim 3104 is the last with
+    128-column slices and 3112 the first with 64 (a share that fits one
+    block's shared memory)."""
     rng = np.random.default_rng(dim + batch)
     w = (rng.standard_normal((dim, dim)) * (0.9 / np.sqrt(dim))
          ).astype(np.float32)
@@ -379,3 +387,53 @@ def test_reservoir_step_kernel_matches_twin(cuda, dim, batch):
         want.append(x)
     torch.cuda.synchronize()
     assert (states - torch.stack(want)).abs().max().item() <= 1e-4
+
+
+def _step_operands(dim, batch, seed, cuda):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                  device=cuda)
+    return (t(rng.uniform(-1, 1, (batch, dim))),
+            t(rng.standard_normal((dim, dim)) * (0.9 / np.sqrt(dim))),
+            t(rng.standard_normal((batch, 3))),
+            t(rng.uniform(-0.5, 0.5, (3, dim))))
+
+
+@pytest.mark.parametrize("dim,batch", [(1024, 16), (800, 1)])
+def test_reservoir_step_raw_w_packs_per_call(cuda, dim, batch):
+    """The functional entry with a raw dense CUDA W packs it for the one
+    call and launches the kernel once."""
+    x, w, u, w_in = _step_operands(dim, batch, 11, cuda)
+    before = reservoir_step.launches
+    got = reservoir_step(x, w, u, w_in, leak=0.4)
+    assert reservoir_step.launches == before + 1
+    want = reservoir_step_plain(x, w, u, w_in, leak=0.4)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("batch", [1, 16, 33])
+def test_reservoir_step_is_deterministic(cuda, batch):
+    """Every float sum has a fixed order: two launches give the same
+    bits."""
+    x, w, u, w_in = _step_operands(1024, batch, 12, cuda)
+    fr = FusedReservoir(w, w_in, leak=0.5, device=cuda)
+    first = fr.step(x, u)
+    second = fr.step(x, u)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_reservoir_step_share_too_large_raises(cuda):
+    """At dim 20480 a 16-row batch tile's share and x rows do not fit one
+    block even in 8-column slices: the call raises, naming the shape, and
+    launches nothing."""
+    dim = 20480
+    w = torch.empty((dim, dim), device=cuda)
+    x = torch.zeros((16, dim), device=cuda)
+    u, w_in = torch.zeros((16, 1), device=cuda), torch.zeros((1, dim),
+                                                             device=cuda)
+    before = reservoir_step.launches
+    with pytest.raises(ValueError, match=r"\(20480, 20480\)"):
+        reservoir_step(x, w, u, w_in)
+    assert reservoir_step.launches == before

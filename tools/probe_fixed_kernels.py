@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Probes of the fixed-matrix kernels B3 (``bitplane_gemv``) and B4
-(``bcsr_matmul``) on one NVIDIA GPU, at LARGE_1024 (dim 1024, int8-CSD,
-block 128; the matrix of ``chip_smoke.py``).
+"""Probes of the fixed-matrix kernels B3 (``bitplane_gemv``), B4
+(``bcsr_matmul``) and B5 (``reservoir_step``) on one NVIDIA GPU, at
+LARGE_1024 (dim 1024, int8-CSD, block 128; the matrix of
+``chip_smoke.py``; B5 on its dense fp32 form).
 
-Run from the root of a checkout: ``python3 tools/probe_fixed_kernels.py``.
-It builds what it needs with ``nvcc`` into ``build/probe/`` and prints
+Run from the root of a checkout: ``python3 tools/probe_fixed_kernels.py``
+(``--only b5`` for one kernel, ``--only copy`` for the copy probe).  It
+builds what it needs with ``nvcc`` into ``build/probe/`` and prints
 
 1. ``copy``: how fast 128 thread blocks move 64 KiB each into shared
    memory (``tools/copy_probe.cu``): device time per launch (profiler) and
@@ -13,10 +15,13 @@ It builds what it needs with ``nvcc`` into ``build/probe/`` and prints
 2. ``sweep``: B3's device time per launch with its shares cut into 1, 2,
    4 or 8 bulk-copy stages, and B4's on grids of (cluster parts, columns
    per block), batch 16 and 1, each result checked against the exact
-   product (B3) or the plain twin (B4, within 1e-4);
+   product (B3) or the plain twin (B4, within 1e-4); B5's on grids of
+   (columns per block, cluster parts) at batch 16 and 1 and on register
+   tiles (columns x batch rows per thread) at batch 16, each checked
+   against the plain twin (within 1e-4);
 3. ``phases``: the same kind of cycle counts as in 1 at points inside
-   instrumented copies of the two kernels (the repository's sources with
-   ``clock64`` stores added), batch 16 and 1.
+   instrumented copies of the three kernels (the repository's sources
+   with ``clock64`` stores added), batch 16 and 1.
 
 Every line names the card and its power limit.  Exits non-zero without a
 CUDA device.
@@ -29,6 +34,7 @@ import dataclasses
 import pathlib
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -168,6 +174,33 @@ B4_POINTS = [
 B4_NAMES = ["copy issued", "x staged", "share landed", "thread 0's FMAs done",
             "sums pushed", "cluster barrier", "own outputs summed"]
 
+B5_POINTS = [
+    ("  const uint32_t bar_in = bar + 8 * kStages;      // the inbox's\n",
+     "  const uint32_t bar_in = bar + 8 * kStages;\n" + stamp(0) + "\n"),
+    ("    mbar_expect_tx(bar_in, p.parts * live * 4);\n",
+     "    mbar_expect_tx(bar_in, p.parts * live * 4);\n" + stamp(1) + "\n"),
+    ("  __syncthreads();\n\n  // products:",
+     "  __syncthreads();\n" + stamp(2) + "\n\n  // products:"),
+    ("    mbar_wait(bar + 8 * s, 0);\n",
+     "    mbar_wait(bar + 8 * s, 0);\n    if (s == 0) " + stamp(3) + "\n"),
+    ("  // the row lanes: a fixed butterfly",
+     stamp(4) + "\n  // the row lanes: a fixed butterfly"),
+    ("  // Every sum of a quad", stamp(5) + "\n  // Every sum of a quad"),
+    ("  asm volatile(\"barrier.cluster.wait.aligned;\" ::: \"memory\");\n",
+     "  asm volatile(\"barrier.cluster.wait.aligned;\" ::: \"memory\");\n"
+     + stamp(6) + "\n"),
+    ("  // the epilogue, once every part's sums",
+     stamp(7) + "\n  // the epilogue, once every part's sums"),
+    ("  mbar_wait(bar_in, 0);\n",
+     "  mbar_wait(bar_in, 0);\n" + stamp(8) + "\n"),
+    ("  }\n}\n\ntemplate <int BT, int CW>\nint launch(",
+     "  }\n" + stamp(9) + "\n}\n\ntemplate <int BT, int CW>\nint launch("),
+]
+B5_NAMES = ["barriers set up, copy issued", "x staged and epilogue inputs "
+            "loaded", "first stage landed", "thread 0's FMAs done", "butterfly",
+            "cluster start wait", "sums sent", "own inbox landed",
+            "epilogue done"]
+
 
 def instrumented(src: str, name: str, points) -> ctypes.CDLL:
     edits = [("using namespace hopper;", "using namespace hopper;\n" + HEADER),
@@ -175,31 +208,46 @@ def instrumented(src: str, name: str, points) -> ctypes.CDLL:
     return build(KERNELS / src, name, edits)
 
 
-def phases(torch, ops, xs, tag: str) -> None:
+def phases(torch, ops, xs, tag: str, only) -> None:
     from repro_torch.kernels.bcsr_matmul import bcsr_matmul as b4
     from repro_torch.kernels.bitplane_gemv import bitplane_gemv as b3
+    from repro_torch.kernels.reservoir_step import reservoir_step as b5
     ts = torch.zeros((4096, 32), dtype=torch.int64, device="cuda")
-    for label, mod, entry, src, points, names, op in (
-            ("B3", b3, "bitplane_gemv", "bitplane_gemv/csrc/bitplane_gemv.cu",
-             B3_POINTS, B3_NAMES, ops["b3"]),
-            ("B4", b4, "bcsr_matmul", "bcsr_matmul/csrc/bcsr_matmul.cu",
-             B4_POINTS, B4_NAMES, ops["b4"])):
+    fr = ops["b5"]
+    u = xs["u"]
+    kernels = {
+        "b3": ("B3", b3, "bitplane_gemv",
+               "bitplane_gemv/csrc/bitplane_gemv.cu", B3_POINTS, B3_NAMES,
+               ops["b3"].packed, lambda x, pk: b3.bitplane_gemv(x, pk),
+               lambda pk, bt: pk.grid.n_blocks),
+        "b4": ("B4", b4, "bcsr_matmul", "bcsr_matmul/csrc/bcsr_matmul.cu",
+               B4_POINTS, B4_NAMES, ops["b4"].packed,
+               lambda x, pk: b4.bcsr_matmul(x, pk),
+               lambda pk, bt: pk.grid.n_blocks),
+        "b5": ("B5", b5, "reservoir_step",
+               "reservoir_step/csrc/reservoir_step.cu", B5_POINTS, B5_NAMES,
+               fr.packed,
+               lambda x, pk: b5.reservoir_step(
+                   x, pk, u[:x.shape[0]], fr.w_in, leak=fr.leak),
+               lambda pk, bt: pk.grid(bt).n_blocks)}
+    for key in [k for k in kernels if k in only]:
+        label, mod, entry, src, points, names, packed, call, blocks = \
+            kernels[key]
         lib = instrumented(src, f"{entry}_phases", points)
         fn = getattr(lib, entry)
         fn.argtypes = mod.LIBRARY.entries[entry]
         if lib.set_ts(ctypes.c_void_p(ts.data_ptr())):
             raise RuntimeError("set_ts failed")
-        packed = dataclasses.replace(op.packed, fn=fn)
-        n_blocks = packed.grid.n_blocks
+        packed = dataclasses.replace(packed, fn=fn)
         for batch in (16, 1):
             x = xs[label][:batch]
             for _ in range(5):
-                getattr(mod, entry)(x, packed)
+                call(x, packed)
             torch.cuda.synchronize()
             ts.zero_()
-            getattr(mod, entry)(x, packed)
+            call(x, packed)
             torch.cuda.synchronize()
-            t = ts[:n_blocks].cpu().numpy()
+            t = ts[:blocks(packed, batch)].cpu().numpy()
             rel = t - t[:, :1]
             cols = ", ".join(f"{nm} {np.median(rel[:, i + 1]):.0f}"
                              for i, nm in enumerate(names))
@@ -208,10 +256,18 @@ def phases(torch, ops, xs, tag: str) -> None:
 
 
 # -- 3. sweeps -------------------------------------------------------------
-def sweeps(torch, plan, ops, xs, exact, tag: str) -> None:
-    from repro_torch.kernels.bcsr_matmul import bcsr_matmul as b4
+def sweeps(torch, plan, ops, xs, exact, tag: str, only, b5_libs) -> None:
+    if "b3" in only:
+        sweep_b3(torch, plan, ops["b3"], xs, exact, tag)
+    if "b4" in only:
+        sweep_b4(torch, ops["b4"], xs, tag)
+    if "b5" in only:
+        sweep_b5(torch, ops["b5"], xs, tag)
+        variants_b5(torch, ops["b5"], xs, tag, b5_libs)
+
+
+def sweep_b3(torch, plan, op3, xs, exact, tag: str) -> None:
     from repro_torch.kernels.bitplane_gemv import bitplane_gemv as b3
-    op3, op4 = ops["b3"], ops["b4"]
     for sc in (32, 16, 8, 4):
         g = dataclasses.replace(op3.packed.grid, sc=sc)
         n_buf = g.buffers(True)
@@ -228,6 +284,10 @@ def sweeps(torch, plan, ops, xs, exact, tag: str) -> None:
             res.append(f"b{batch} {us:.3f} us (exact {ok})")
         print(f"sweep B3 {g.n_stages} stage(s) of {g.stage_bytes} B: "
               + "; ".join(res) + f" on {tag}")
+
+
+def sweep_b4(torch, op4, xs, tag: str) -> None:
+    from repro_torch.kernels.bcsr_matmul import bcsr_matmul as b4
     lay = op4.layout
     want = {b: b4.bcsr_matmul_plain(xs["B4"][:b], op4.tiles, op4.col_ptr,
                                     op4.tile_rows, op4.rows_pad)
@@ -254,8 +314,143 @@ def sweeps(torch, plan, ops, xs, exact, tag: str) -> None:
               f"{parts}: " + "; ".join(res) + f" on {tag}")
 
 
+B5_GRIDS = ((8, 128), (8, 64), (4, 64), (4, 32), (2, 32), (2, 16), (1, 16),
+            (1, 8))                                   # (parts, cw)
+
+
+# B5 design alternatives, each a textual edit of csrc/reservoir_step.cu
+_SEND = ("KLW lanes\n    if (klw == 0) {\n#pragma unroll\n"
+         "      for (int j = 0; j < RB; ++j) {\n#pragma unroll\n"
+         "        for (int h = 0; h < H; ++h) {\n")
+_TILE = ("  constexpr int TC = 4;\n"
+         "  constexpr int RB = BT < 4 ? BT : BT == 16 ? 8 : 4;\n")
+B5_VARIANTS = {
+    "as committed": [],
+    "4 x 4 register tile": [(_TILE, _TILE.replace("BT == 16 ? 8 : 4", "4"))],
+    "8 x 4 register tile": [(_TILE, _TILE.replace("TC = 4", "TC = 8")
+                             .replace("BT == 16 ? 8 : 4", "4"))],
+    "4 x 16 register tile": [(_TILE, _TILE.replace("BT == 16 ? 8 : 4",
+                                                   "BT"))],
+    "512 threads per block": [
+        ("constexpr int kThreads = 256;", "constexpr int kThreads = 512;")],
+    "two bulk copies per share": [
+        ("constexpr int kStages = 1;", "constexpr int kStages = 2;")],
+    "four bulk copies per share": [
+        ("constexpr int kStages = 1;", "constexpr int kStages = 4;")],
+    "cluster wait just before the sends": [
+        ("  // every block of the cluster has started and set up its barriers "
+         "(a\n  // wait that overlaps the share's landing)\n  asm volatile("
+         "\"barrier.cluster.wait.aligned;\" ::: \"memory\");\n", ""),
+        ("  if constexpr (GROUPS == 1) {\n",
+         "  asm volatile(\"barrier.cluster.wait.aligned;\" ::: \"memory\");"
+         "\n  if constexpr (GROUPS == 1) {\n")],
+    "sends split over the lanes of each butterfly": [
+        (_SEND, _SEND.replace("    if (klw == 0) {", "    {").replace(
+            "h < H; ++h) {", "h < H; ++h) if ((j * H + h) % KLW == klw) {"))],
+}
+
+
+def build_b5_variants() -> list:
+    """Every variant of B5_VARIANTS built and loaded (the kernel renamed,
+    so the profiler keeps the copies apart).  Done before the first
+    profile: the profiler records no launch of a library loaded after
+    it first ran."""
+    rename = [("reservoir_step_kernel(", "b5variant_kernel("),
+              ("reservoir_step_kernel<BT, CW>;", "b5variant_kernel<BT, CW>;")]
+    src = KERNELS / "reservoir_step" / "csrc" / "reservoir_step.cu"
+    with ThreadPoolExecutor(len(B5_VARIANTS)) as pool:   # one nvcc each
+        return list(pool.map(
+            lambda ie: build(src, f"b5_variant{ie[0]}", [*rename, *ie[1]]),
+            enumerate(B5_VARIANTS.values())))
+
+
+def variants_b5(torch, fr, xs, tag: str, libs) -> None:
+    """The B5 variants (``libs``, from build_b5_variants) on the picker's
+    grids, batch 16 and 1, each launch given room for 8 groups of row
+    lanes' sums (a wider tile sums more of them in shared memory), each
+    checked against the plain twin."""
+    from repro_torch.kernels._launch import MAX_SMEM
+    from repro_torch.kernels.reservoir_step import reservoir_step as b5
+
+    @dataclasses.dataclass(frozen=True)
+    class Roomy(b5.StepGrid):
+        smem = property(lambda self: min(
+            MAX_SMEM, b5.StepGrid.smem.fget(self)
+            + 8 * self.b_tile * self.cw * 4))
+
+    u = xs["u"]
+    grids = {bt: Roomy(**dataclasses.asdict(g))
+             for bt, g in fr.packed.grids.items()}
+    for label, lib in zip(B5_VARIANTS, libs):
+        fn = lib.reservoir_step
+        fn.argtypes = b5.LIBRARY.entries["reservoir_step"]
+        pk = dataclasses.replace(fr.packed, fn=fn, grids=grids)
+        res = []
+        for batch in (16, 1):
+            x = xs["B5"][:batch]
+            want = b5.reservoir_step_plain(x, fr.w, u[:batch], fr.w_in,
+                                           leak=fr.leak)
+            call = lambda: b5.reservoir_step(        # noqa: E731
+                x, pk, u[:batch], fr.w_in, leak=fr.leak)
+            err = (call() - want).abs().max().item()
+            us = device_us(torch, call, "b5variant_kernel")
+            res.append(f"b{batch} {us:.3f} us (max |diff| {err:.2g}"
+                       f"{'' if err <= 1e-4 else ', FAILS 1e-4'})")
+        print(f"variant B5 {label}: " + "; ".join(res) + f" on {tag}")
+
+
+def sweep_b5(torch, fr, xs, tag: str) -> None:
+    """B5 on every (parts, cw) of B5_GRIDS at batch 16, 8, 4, 2 and 1; each
+    also with shared memory padded to more than half an SM's, so that no
+    two blocks share an SM ("spread")."""
+    from repro_torch.kernels._launch import MAX_SMEM
+    from repro_torch.kernels.reservoir_step import reservoir_step as b5
+    one_per_sm = 116 * 1024
+
+    @dataclasses.dataclass(frozen=True)
+    class Spread(b5.StepGrid):
+        smem = property(lambda self: max(one_per_sm,
+                                         b5.StepGrid.smem.fget(self)))
+
+    u = xs["u"]
+    for parts, cw in B5_GRIDS:
+        res = []
+        for batch in (16, 8, 4, 2, 1):
+            g = dataclasses.replace(fr.packed.grid(batch), parts=parts, cw=cw)
+            if g.smem > MAX_SMEM:
+                res.append(f"b{batch} does not fit ({g.smem} B)")
+                continue
+            blobs = {(cw, parts): b5.pack_share_blob(fr.w, g)}
+            x = xs["B5"][:batch]
+            want = b5.reservoir_step_plain(x, fr.w, u[:batch], fr.w_in,
+                                           leak=fr.leak)
+            times = []
+            for grid in (g, Spread(**dataclasses.asdict(g))):
+                pk = dataclasses.replace(fr.packed, grids={batch: grid},
+                                         blobs=blobs)
+                call = lambda: b5.reservoir_step(    # noqa: E731
+                    x, pk, u[:batch], fr.w_in, leak=fr.leak)
+                try:
+                    err = (call() - want).abs().max().item()
+                except RuntimeError as e:          # a cluster not scheduled
+                    times.append(f"refused ({e})")
+                    continue
+                us = device_us(torch, call, "reservoir_step_kernel")
+                times.append(f"{us:.3f}"
+                             + ("" if err <= 1e-4 else f" FAILS ({err:.2g})"))
+            res.append(f"b{batch} {times[0]} us (spread {times[1]}), "
+                       f"{g.smem} B smem")
+        print(f"sweep B5 {g.n_blocks} blocks of {cw} columns, clusters of "
+              f"{parts}: " + "; ".join(res) + f" on {tag}")
+
+
 def main() -> int:
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", nargs="+", default=["copy", "b3", "b4", "b5"],
+                    choices=["copy", "b3", "b4", "b5"])
+    only = ap.parse_args().only
     if not torch.cuda.is_available():
         print("probe_fixed_kernels: no CUDA device", file=sys.stderr)
         return 2
@@ -263,6 +458,8 @@ def main() -> int:
     from repro_torch.core.esn import init_esn
     from repro_torch.kernels.bcsr_matmul.ops import BcsrMatmul
     from repro_torch.kernels.bitplane_gemv.ops import BitplaneGemv
+    from repro_torch.kernels.reservoir_step.ops import FusedReservoir
+    torch.backends.cuda.matmul.allow_tf32 = False     # the twin in fp32
     tag = card()
     dev = torch.device("cuda")
     params = init_esn(LARGE_1024, device=dev)
@@ -271,15 +468,23 @@ def main() -> int:
     xs = {"B3": torch.as_tensor(rng.integers(-128, 128, (16, 1024)),
                                 dtype=torch.int8, device=dev),
           "B4": torch.as_tensor(rng.standard_normal((16, 1024)),
-                                dtype=torch.float32, device=dev)}
+                                dtype=torch.float32, device=dev),
+          "B5": torch.as_tensor(rng.uniform(-1, 1, (16, 1024)),
+                                dtype=torch.float32, device=dev),
+          "u": torch.as_tensor(rng.standard_normal((16, 1)),
+                               dtype=torch.float32, device=dev)}
     ops = {"b3": BitplaneGemv(plan, device=dev),
-           "b4": BcsrMatmul(plan, device=dev)}
+           "b4": BcsrMatmul(plan, device=dev),
+           "b5": FusedReservoir(params.w.dense_f32(device=dev), params.w_in,
+                                leak=LARGE_1024.leak, device=dev)}
     exact = params.w.matvec_int_exact(xs["B3"])
-    copies(torch, tag)
+    b5_libs = build_b5_variants() if "b5" in only else []
+    if "copy" in only:
+        copies(torch, tag)
     # the sweeps first: once an instrumented copy of a kernel is loaded
     # the profiler loses launches of the kernel of the same name
-    sweeps(torch, plan, ops, xs, exact, tag)
-    phases(torch, ops, xs, tag)
+    sweeps(torch, plan, ops, xs, exact, tag, only, b5_libs)
+    phases(torch, ops, xs, tag, only)
     return 0
 
 
