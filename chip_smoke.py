@@ -31,6 +31,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    over 64 steps at batch 16 (vs its twin and the fp32 B1 rollout), the
    cross-family check of tests/test_plan.py at dim 256, and all three at
    PAPER_BASELINE's ragged dim 800;
+7. ``serve_layer`` (run last): the rest of the serve layer at
+   LARGE_1024: (a) the ``"torch"`` backend against the ``"cuda"`` one (B2)
+   at batch 16, T = 64 — int8 at LARGE_1024, fp32-dense at PAPER_BASELINE
+   and the culled int8 schedule on a block-sparse dim-1024 matrix: states
+   within SERVE_TOL, int32 products == ``matvec_int_exact``, chunked
+   (2 x 32) == one-shot bit for bit, each backend's time per 32-step
+   chunk (CUDA events; device time by the profiler, the torch backend's
+   at the end of the phase); (b) a bounded-queue + deadline-shedding admission policy over an
+   overflowing burst (rejections and sheds counted, every served answer
+   == the engine's one-shot answer at the pool shape); (c) a fault plan
+   of transient failures and a straggler window (answers == the
+   fault-free run's, retries recorded); (d) a registry of a B2 model and
+   a B1 (``specialize=False``) model in one pool with a new version
+   published mid-burst (zero drops, versions pinned, answers bit-exact
+   against the pinned engines, B1 and B2 launched);
 5. times each kernel per launch at the LARGE_1024 shape with CUDA events
    and the profiler, beside its plain twin, one PyTorch call computing the
    same product (and cuSPARSE for B4), and the least time the card could
@@ -67,6 +82,10 @@ sys.path.insert(0, str(ROOT / "src"))
 # readout is a 1024-term float sum in another order in both modes.
 FP32_TOL = 1e-4
 READOUT_TOL = 1e-4
+# torch serve backend vs the kernels: the same recurrence, but the input
+# projection is one library product (another sum order when I > 1) and
+# fp32-dense sums the recurrent product in a library order
+SERVE_TOL = 1e-4
 
 # phase 3 serves its 24-request burst this many times (fresh server each)
 BURSTS = 5
@@ -461,6 +480,284 @@ class Smoke:
                        f"preds {dp:.3g}")
             print(f"  PAPER_BASELINE fp32 {name} vs twin: states {ds:.3g}, "
                   f"preds {dp:.3g}")
+
+    # -- phase 7 -------------------------------------------------------------
+    def serve_layer(self):
+        """The rest of the serve layer at LARGE_1024 on the card: the torch
+        backend against the kernels, an admission policy, a fault plan and
+        a registry live swap (B2 and B1 models in one pool).  The phase's
+        B1/B2 launch counts cover the servers of (b)-(d) only: the
+        backend comparison (a) and the one-shot answers that served ones
+        are checked against are left out."""
+        from repro_torch.kernels.reservoir_rollout.reservoir_rollout import (
+            reservoir_rollout, rollout_readout)
+        from repro_torch.kernels.reservoir_rollout.specialized import (
+            specialized_rollout)
+        self._counted = {"specialized_rollout": specialized_rollout,
+                         "reservoir_rollout": reservoir_rollout}
+        self._readout = rollout_readout
+        self.serve_launches = dict.fromkeys(
+            [*self._counted, "rollout_readout"], 0)
+        self._torch_backend()
+        self._admission()
+        self._fault_plan()
+        self._registry()
+        self._torch_device_times()
+        print("serve_layer launches (rollout_readout: fused readouts):",
+              self.serve_launches)
+        for k, n in self.serve_launches.items():
+            self.check(n > 0, f"{k} launched in serve_layer")
+
+    def _drive(self, call, count=True):
+        """Run ``call`` and, with ``count``, add the B1/B2 launches it made
+        to the phase's counts; returns (its result, those launches)."""
+        for fn in self._counted.values():
+            fn.launches = 0
+        self._readout.fused_launches = 0
+        out = call()
+        self.torch.cuda.synchronize()
+        made = {k: fn.launches for k, fn in self._counted.items()}
+        made["rollout_readout"] = self._readout.fused_launches
+        if count:
+            for k, n in made.items():
+                self.serve_launches[k] += n
+        return out, made
+
+    def _backend_pair(self, params, tag, seed, **kw):
+        """(a) The torch backend against the cuda backend on one reservoir
+        at batch 16, T = 64: states within SERVE_TOL, int8 products ==
+        matvec_int_exact exactly, chunked (2 x 32) == one-shot bit for bit
+        on the torch backend, and each backend's time per 32-step chunk."""
+        torch = self.torch
+        from repro_torch.serve import ReservoirEngine
+        t = ReservoirEngine(params, backend="torch", **kw)
+        c = ReservoirEngine(params, **kw)
+        cfg = params.config
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        u = torch.randn((16, 64, cfg.input_dim), generator=gen).to(self.dev)
+        x0 = (0.5 * torch.randn((16, cfg.reservoir_dim),
+                                generator=gen)).to(self.dev)
+        ts, tf = t.run_segment(u, x0, want_states=True)
+        cs, cf = c.run_segment(u, x0, want_states=True)
+        d = max(maxdiff(ts, cs), maxdiff(tf, cf))
+        self.check(d <= SERVE_TOL, f"{tag} torch vs cuda states {d:.3g}")
+        a, carry = t.run_segment(u[:, :32], x0, want_states=True)
+        b, last = t.run_segment(u[:, 32:], carry, want_states=True)
+        chunked = (torch.equal(torch.cat([a, b], dim=1), ts)
+                   and torch.equal(last, tf))
+        self.check(chunked, f"{tag} torch backend chunked != one-shot")
+        line = (f"  {tag} [{t.torch_schedule}, block density "
+                f"{t.plan.block_density:.3f}]: torch vs cuda states "
+                f"{d:.3g}, chunked 2x32 == one-shot {chunked}")
+        if cfg.mode.startswith("int8"):
+            smax = (1 << (cfg.state_bits - 1)) - 1
+            xq = torch.clamp(torch.round(ts[:, ::8].reshape(
+                -1, cfg.reservoir_dim) * smax), -smax - 1,
+                smax).to(torch.int32)
+            exact = torch.equal(t._int_product(xq),
+                                params.w.matvec_int_exact(xq))
+            self.check(exact, f"{tag} torch int32 products != "
+                       "matvec_int_exact")
+            line += f", int32 products == matvec_int_exact {exact}"
+        print(line)
+        u32 = u[:, :32]
+        calls = {name: (lambda eng=eng: eng.run_segment(
+            u32, x0, want_states=not eng.has_readout, defer_sync=True))
+            for name, eng in (("cuda", c), ("torch", t))}
+        times = {}
+        for name, call in calls.items():
+            _, made = self._drive(call, count=False)
+            ms = self.timed(call, 20)
+            # the kernel's device time now; the torch backend's (thousands
+            # of small launches per profile) last in the phase
+            dev_us = (self._device_us(call, "", n=2) if name == "cuda"
+                      else None)
+            times[name] = {"ms_per_chunk": ms, "device_us_per_chunk": dev_us}
+            print(f"    {name} backend: {ms * 1e3:.1f} us per 32-step chunk "
+                  f"(CUDA events), launches per chunk {made} on {self.card}"
+                  + ("" if name == "torch" else
+                     f"; {dev_us:.3f} us device time (profiler)"))
+        return times, calls["torch"]
+
+    def _torch_backend(self):
+        from repro_torch.configs.esn_paper import LARGE_1024
+        from repro_torch.core.esn import ESNParams
+        from repro_torch.core.sparse import (FixedMatrix,
+                                             random_sparse_matrix)
+        # a block-sparse dim-1024 matrix (blocks kept only on the three
+        # central block diagonals, 22/64): the culled int8 schedule
+        rng = np.random.default_rng(0)
+        w = random_sparse_matrix(1024, 1024, 0.95, rng) * 0.05
+        blk = np.arange(1024) // 128
+        w[np.abs(blk[:, None] - blk[None, :]) > 1] = 0.0
+        fm = FixedMatrix.compile(w, weight_bits=8, mode="csd", block=128,
+                                 rng=rng)
+        p = self.params_1024
+        culled = ESNParams(w=fm, w_in=p.w_in, w_out=p.w_out,
+                           config=LARGE_1024)
+        self.backend_times, self._torch_calls = {}, {}
+        for tag, params, seed in (
+                ("LARGE_1024 int8", self.params_1024, 41),
+                ("PAPER_BASELINE fp32", self.params_800, 43),
+                ("banded 1024 int8 (culled)", culled, 47)):
+            self.backend_times[tag], self._torch_calls[tag] = \
+                self._backend_pair(params, tag, seed)
+
+    def _torch_device_times(self):
+        """The torch backend's device time per 32-step chunk (profiler),
+        the phase's last measurement: one chunk is hundreds of launches
+        (thousands for the culled schedule, which is not profiled), and
+        such profiles have been followed by empty ones on an H100."""
+        for tag, call in self._torch_calls.items():
+            if "culled" in tag:
+                continue
+            dev_us = self._device_us(call, "", n=2, required=False)
+            self.backend_times[tag]["torch"]["device_us_per_chunk"] = dev_us
+            print(f"  {tag} torch backend: "
+                  + ("not measured" if dev_us is None else f"{dev_us:.3f} us")
+                  + " device time per 32-step chunk "
+                  f"(profiler) on {self.card}")
+
+    def _burst(self, n, seed, lo=64, hi=161):
+        rng = np.random.default_rng(seed)
+        return [rng.standard_normal((int(t), 1)).astype(np.float32)
+                for t in rng.integers(lo, hi, size=n)]
+
+    def _pool_exact(self, eng, inputs, out, n_slots=16):
+        """A served answer == the engine's one-shot answer at the pool's
+        batch shape (the request broadcast over every slot)."""
+        batch = self.torch.as_tensor(np.broadcast_to(
+            inputs[None], (n_slots,) + inputs.shape).copy(), device=self.dev)
+        return np.array_equal(out, eng.predictions(batch)[0].cpu().numpy())
+
+    def _admission(self):
+        """(b) A bounded queue and deadline shedding in front of the B2
+        server, a burst that overflows both."""
+        from repro_torch.serve import (AsyncReservoirServer,
+                                       BoundedQueuePolicy, CompositePolicy,
+                                       DeadlineShedPolicy, ReservoirEngine,
+                                       ServeStats, SubmitSpec)
+        eng = ReservoirEngine(self.params_1024)
+        srv = AsyncReservoirServer(
+            eng, n_slots=16, chunk_steps=32, chunk_time=1e-3,
+            stats=ServeStats(), admission=CompositePolicy(
+                BoundedQueuePolicy(max_depth=24), DeadlineShedPolicy()))
+        inputs = self._burst(40, 53)
+        for i, x in enumerate(inputs):
+            # every fifth request asks for a 2 ms answer
+            srv.submit(SubmitSpec(x, uid=i, deadline=2e-3 if i % 5 == 4
+                                  else None), arrival_time=0.0)
+        res, made = self._drive(srv.run)
+        st = srv.stats
+        ok = [i for i, r in res.items() if r.status == "ok"]
+        exact = all(self._pool_exact(eng, inputs[i], res[i].preds)
+                    for i in ok)
+        reasons = sorted({r.timings["reason"] for r in res.values()
+                          if r.rejected})
+        self.check(st.rejected > 0 and st.shed > 0,
+                   f"admission rejected {st.rejected}, shed {st.shed}")
+        self.check(len(res) == len(inputs) and st.completed == len(ok)
+                   and st.enqueued == len(ok), "admission accounting")
+        self.check(exact, "admitted answers != one-shot at the pool shape")
+        print(f"  admission: {len(inputs)} submitted, {len(ok)} served, "
+              f"{st.rejected} rejected, {st.shed} shed ({reasons}); "
+              f"served == one-shot at the pool shape {exact}; "
+              f"{srv.stats.chunks} chunks, launches {made}")
+
+    def _fault_plan(self):
+        """(c) Transient engine-call failures and a straggler window on
+        the server's clock: the same answers as the fault-free run, bit
+        for bit, the retries recorded and the clock charged."""
+        from repro_torch.runtime.faults import FaultEvent, FaultPlan
+        from repro_torch.serve import (AsyncReservoirServer, ReservoirEngine,
+                                       ServeStats, SubmitSpec)
+        eng = ReservoirEngine(self.params_1024)
+        inputs = self._burst(24, 59)
+        runs = {}
+        for name in ("clean", "faults"):
+            plan = None if name == "clean" else FaultPlan([
+                FaultEvent("transient", at=2e-3, count=2),
+                FaultEvent("slow_shard", at=3e-3, factor=3.0,
+                           duration=4e-3),
+                FaultEvent("transient", at=6e-3, count=1)])
+            srv = AsyncReservoirServer(eng, n_slots=16, chunk_steps=32,
+                                       chunk_time=1e-3, stats=ServeStats(),
+                                       fault_plan=plan)
+            for i, x in enumerate(inputs):
+                srv.submit(SubmitSpec(x, uid=i), arrival_time=2e-4 * i)
+            res, made = self._drive(srv.run)
+            runs[name] = (srv, res, plan, made)
+        clean, faulty = runs["clean"], runs["faults"]
+        same = len(faulty[1]) == len(inputs) and all(
+            np.array_equal(faulty[1][i].preds, clean[1][i].preds)
+            for i in range(len(inputs)))
+        st, plan = faulty[0].stats, faulty[2]
+        self.check(same, "fault-plan answers != fault-free answers")
+        self.check(st.retries == 3 and plan.injected == {
+            "transient": 2, "slow_shard": 1},
+            f"fault plan retries {st.retries}, injected {plan.injected}")
+        self.check(faulty[0].now > clean[0].now, "fault clock not charged")
+        print(f"  fault plan: {plan.injected} injected, {st.retries} "
+              f"retries, clock {faulty[0].now * 1e3:.3f} ms vs "
+              f"{clean[0].now * 1e3:.3f} ms fault-free; answers == "
+              f"fault-free bit for bit {same}; launches {faulty[3]}")
+
+    def _registry(self):
+        """(d) Two models in one pool — "a" on B2, "b" generic on B1 — and
+        a new version of "a" (a new readout) published mid-burst: zero
+        drops, versions pinned at admission, every answer bit-exact
+        against its pinned version's engine at the pool shape."""
+        from repro_torch.serve import (AsyncReservoirServer, ModelRegistry,
+                                       ServeStats, SubmitSpec)
+        p = self.params_1024
+        reg = ModelRegistry()
+        reg.register("a", p)
+        reg.register("b", dataclasses.replace(p, w_out=-0.5 * p.w_out),
+                     specialize=False)
+        srv = AsyncReservoirServer(reg.engine("a"), n_slots=16,
+                                   chunk_steps=32, chunk_time=1e-3,
+                                   registry=reg, stats=ServeStats())
+        inputs = self._burst(32, 61)
+        handles = [srv.submit(SubmitSpec(x, model="ab"[i % 2], uid=i),
+                              arrival_time=5e-4 * i)
+                   for i, x in enumerate(inputs)]
+
+        def serve():
+            published = None
+            while srv.step():
+                if published is None and srv.stats.completed >= 4:
+                    published = reg.publish("a", dataclasses.replace(
+                        p, w_out=1.5 * p.w_out))
+            return published
+
+        published, made = self._drive(serve)
+        res = srv.results
+        pinned = [(q.model, q.pinned_version) for q in handles]
+        versions_ok = all(res[i].timings["version"] == v
+                          and res[i].timings["model"] == m
+                          for i, (m, v) in enumerate(pinned))
+        exact = all(self._pool_exact(reg.engine(m, v), inputs[i],
+                                     res[i].preds)
+                    for i, (m, v) in enumerate(pinned))
+        a_versions = sorted({v for m, v in pinned if m == "a"})
+        self.check(published is not None and published["version"] == 2,
+                   "registry publish mid-burst")
+        self.check(len(res) == len(inputs) and srv.stats.timed_out == 0
+                   and srv.stats.completed == len(inputs),
+                   "registry dropped requests")
+        self.check(versions_ok and a_versions == [1, 2],
+                   f"registry versions {a_versions}")
+        self.check(exact, "registry answers != pinned engine at the pool "
+                   "shape")
+        self.check(made["specialized_rollout"] > 0
+                   and made["reservoir_rollout"] > 0,
+                   f"registry launches {made}")
+        prewarm = (published or {}).get("prewarm_s", float("nan"))
+        print(f"  registry: {len(res)} served, {srv.stats.timed_out} dropped,"
+              f" model a versions {a_versions} (publish after "
+              f"{prewarm * 1e3:.1f} ms of prewarm), answers == pinned engine "
+              f"at the pool shape "
+              f"{exact}; {srv.stats.chunks} chunks, launches {made}")
 
     # -- phase 5 -------------------------------------------------------------
     def times(self):
@@ -973,13 +1270,17 @@ class Smoke:
                   f"{e.device_time_total / e.count:.2f} us device time each")
         return rows
 
-    def _device_us(self, call, kernel: str, n: int = 1, flush=False):
+    def _device_us(self, call, kernel: str, n: int = 1, flush=False,
+                   required=True):
         """Device µs per call of the launches of ``kernel`` (every kernel
         the call launches with ``kernel=""``), from a profile of ``n``
         calls; with ``flush`` a 128 MiB buffer is written before each call
         (the 50 MB L2 holds none of the operands: cold L2).  A named
         kernel must show one launch per call (every call at least one
-        launch), else the profile is taken again (at most three times)."""
+        launch), else the profile is taken again, up to five times a
+        second apart, and then the run fails.  Only ``required=False``
+        (the torch backend's device time, hundreds of small launches per
+        call) returns None instead, printed as "not measured"."""
         torch = self.torch
         if flush:
             buf = torch.empty(32 << 20, dtype=torch.float32, device=self.dev)
@@ -991,15 +1292,23 @@ class Smoke:
         else:
             calls = [call] * n
         call()
-        for _ in range(3):
+        for attempt in range(5):
+            if attempt:
+                time.sleep(1.0)
             rows = [e for e in self._profile(calls, quiet=n > 1)
                     if e.device_type == torch.autograd.DeviceType.CUDA
                     and kernel in e.key]
             count = sum(e.count for e in rows)
             if count == n or (not kernel and count >= n):
                 return sum(e.device_time_total for e in rows) / n
-        raise RuntimeError(f"the profiler did not record {n} launches of "
-                           f"{kernel}")
+        what = (f"{n} launches of {kernel}" if kernel
+                else f"a launch in each of {n} calls")
+        if required:
+            raise RuntimeError(f"the profiler did not record {what} in "
+                               "five profiles")
+        print(f"profiler: {what} not recorded in five profiles: "
+              "not measured")
+        return None
 
     def _record(self, name, ms, plain_ms, library_ms, bytes_, ops_s,
                 batch=None):
@@ -1027,6 +1336,7 @@ class Smoke:
             rows.append(dict(
                 name=name, route="cuda", source=source, replaces=rep,
                 launches=self.launches[name],
+                launches_serve_layer=self.serve_launches.get(name, 0),
                 max_abs_err=max(v for v in e.values() if v is not None),
                 **{f"max_abs_err_{m}": v for m, v in e.items()},
                 **self.kernels[name]))
@@ -1055,9 +1365,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smoke = Smoke(torch)
     t_all = time.perf_counter()
+    # serve_layer last: its profiles of the torch backend's many small
+    # launches must not come before the kernels' timing phases
     for phase in (smoke.build, smoke.twins, smoke.main_path,
                   smoke.baseline_twins, smoke.fixed_matrix, smoke.times,
-                  smoke.fixed_times):
+                  smoke.fixed_times, smoke.serve_layer):
         t0 = time.perf_counter()
         print(f"== {phase.__name__}")
         try:

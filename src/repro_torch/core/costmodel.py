@@ -32,6 +32,7 @@ __all__ = [
     "power_w",
     "latency_cycles",
     "design_point",
+    "tpu_decode_bytes",
 ]
 
 # --- Xilinx XCVU13P (paper Sec. VI) ---------------------------------------
@@ -177,3 +178,44 @@ def design_point(
         power_w=power_w(ones, f),
         cycles=latency_cycles(input_bits, weight_bits, rows),
     )
+
+
+# --- what the technique buys on a memory-bound gemv -------------------------
+def tpu_decode_bytes(
+    rows: int,
+    cols: int,
+    element_sparsity: float,
+    weight_bits: int = 8,
+    mode: str = "csd",
+    block: int = 128,
+) -> dict[str, float]:
+    """Bytes one gemv must move under different weight encodings.
+
+    Decode (batch-1 gemv) is memory-roofline-bound: latency ~ bytes / HBM_bw
+    on any accelerator (the name is the JAX package's, which sized a TPU).
+    The paper's fixed-matrix specialization maps to (a) int8 storage and
+    (b) culling all-zero ``block x block`` tiles, with per-tile digit-plane
+    counts from CSD.  Returns bytes per encoding for napkin comparison.
+    """
+    dense_bf16 = rows * cols * 2.0
+    dense_int8 = rows * cols * 1.0
+    # Probability a block has at least one nonzero element:
+    p_nz_block = 1.0 - element_sparsity ** (block * block)
+    n_blocks = math.ceil(rows / block) * math.ceil(cols / block)
+    blocks_kept = n_blocks * p_nz_block
+    bcsr_int8 = blocks_kept * block * block * 1.0 + n_blocks / 8.0
+    # Digit-plane encoding: one bit per plane entry, planes kept per block.
+    mag_bits = max(weight_bits - 1, 1)
+    planes = mag_bits + (1 if mode == "csd" else 0)
+    plane_density = (1.0 - element_sparsity) * (
+        0.5 * (0.83 if mode == "csd" else 1.0))
+    # Bitmap planes: block*block/8 bytes per kept (plane, block); a plane-block
+    # is kept if any bit in it is set.
+    p_keep = 1.0 - (1.0 - plane_density) ** (block * block)
+    plane_bytes = n_blocks * planes * p_keep * (block * block / 8.0)
+    return {
+        "dense_bf16": dense_bf16,
+        "dense_int8": dense_int8,
+        "bcsr_int8": bcsr_int8,
+        "digit_planes": plane_bytes,
+    }

@@ -193,6 +193,10 @@ def _run_reservoir_scan(params: ESNParams, inputs: torch.Tensor,
     return out[0] if single else out
 
 
+# run_reservoir / run_readout implementations ("scan" is the plain loop)
+_ENGINES = ("auto", "cuda", "torch", "scan")
+
+
 def run_reservoir(params: ESNParams, inputs, x0=None,
                   engine: str = "auto") -> torch.Tensor:
     """Roll the reservoir over ``inputs`` (T, input_dim) -> states (T, dim).
@@ -200,18 +204,24 @@ def run_reservoir(params: ESNParams, inputs, x0=None,
     Batched inputs (B, T, input_dim) return (B, T, dim) states.
 
     ``engine`` picks the rollout implementation:
-      * "auto" — the batched engine in :mod:`repro_torch.serve.engine`
-        (the CUDA rollout kernels; their plain PyTorch twins when the
-        params live on the CPU).
+      * "auto" / "cuda" — the batched engine in
+        :mod:`repro_torch.serve.engine` on the CUDA rollout kernels (their
+        plain PyTorch twins when the params live on the CPU).
+      * "torch" — the same engine's per-step PyTorch backend (input
+        projection hoisted, native batch, int8 requantized per step).
       * "scan" — the plain per-step loop (baseline).
     """
     if engine == "scan":
         return _run_reservoir_scan(params, inputs, x0)
-    if engine != "auto":
-        raise ValueError(f"unknown engine {engine!r}; expected 'auto' or "
-                         "'scan'")
+    return _engine(params, engine).rollout(inputs, x0)
+
+
+def _engine(params: ESNParams, engine: str):
+    if engine not in _ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; expected one of "
+                         f"{_ENGINES}")
     from repro_torch.serve.engine import engine_for  # serve imports esn
-    return engine_for(params, backend=engine).rollout(inputs, x0)
+    return engine_for(params, backend=engine)
 
 
 def run_readout(params: ESNParams, inputs, x0=None,
@@ -219,19 +229,17 @@ def run_readout(params: ESNParams, inputs, x0=None,
     """Roll the reservoir AND apply the trained readout in one pass.
 
     (T, input_dim) -> (T, output_dim) predictions (batched inputs return
-    (B, T, output_dim)).  ``W_out`` is applied by the rollout's readout
-    kernel after each step, so the state trajectory is never materialized
-    — the serving path ("serving returns predictions, not states").
+    (B, T, output_dim)).  ``W_out`` is applied inside the rollout (the
+    kernel's fused readout, or after the torch backend's loop), so the
+    state trajectory never leaves the engine — the serving path ("serving
+    returns predictions, not states").  ``engine`` as in
+    :func:`run_reservoir`.
     """
     if params.w_out is None:
         raise ValueError("readout not trained; call fit_readout first")
     if engine == "scan":
         return predict(params, _run_reservoir_scan(params, inputs, x0))
-    if engine != "auto":
-        raise ValueError(f"unknown engine {engine!r}; expected 'auto' or "
-                         "'scan'")
-    from repro_torch.serve.engine import engine_for  # serve imports esn
-    return engine_for(params, backend=engine).predictions(inputs, x0)
+    return _engine(params, engine).predictions(inputs, x0)
 
 
 def fit_readout(params: ESNParams, states: torch.Tensor,

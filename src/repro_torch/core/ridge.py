@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["gram_accumulate", "ridge_fit"]
+__all__ = ["gram_accumulate", "ridge_solve", "ridge_fit"]
 
 
 def gram_accumulate(x: torch.Tensor, y: torch.Tensor,
@@ -27,6 +27,21 @@ def gram_accumulate(x: torch.Tensor, y: torch.Tensor,
         xtx = xtx + carry[0]
         xty = xty + carry[1]
     return xtx, xty
+
+
+def ridge_solve(xtx: torch.Tensor, xty: torch.Tensor,
+                lam: float) -> torch.Tensor:
+    """Solve (X^T X + lam I) W = X^T Y on the Grams' device.
+
+    Uses a symmetric eigendecomposition rather than Cholesky: reservoir Gram
+    matrices are often near-singular (strongly correlated states) and a
+    float32 Cholesky fails where eigh merely clamps the tiny eigenvalues,
+    which the ridge term then regularizes.
+    """
+    evals, evecs = torch.linalg.eigh(xtx)
+    evals = torch.clamp(evals, min=0.0)     # clamp negative round-off
+    inv = 1.0 / (evals + lam)
+    return evecs @ (inv[:, None] * (evecs.T @ xty))
 
 
 def ridge_fit(x: torch.Tensor, y: torch.Tensor,

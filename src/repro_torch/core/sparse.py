@@ -97,19 +97,31 @@ class BlockSparse:
     def density(self) -> float:
         return self.n_blocks_nnz / max(self.n_blocks_total, 1)
 
-    def matmul_ref(self, x: torch.Tensor) -> torch.Tensor:
+    def to_dense(self) -> np.ndarray:
+        nbr, nbc = self.mask.shape
+        bk = self.block
+        out = np.zeros((nbr * bk, nbc * bk), dtype=self.data.dtype)
+        for i, (br, bc) in enumerate(zip(self.block_rows, self.block_cols)):
+            out[br * bk:(br + 1) * bk, bc * bk:(bc + 1) * bk] = self.data[i]
+        return out[: self.shape[0], : self.shape[1]]
+
+    def matmul_ref(self, x: torch.Tensor,
+                   tiles: torch.Tensor | None = None) -> torch.Tensor:
         """Blocked ``x @ M`` over nonzero blocks only.
 
         x: (..., rows) -> (..., cols).  The Python loop is over the static
         nonzero-block list — zero blocks are culled exactly like the
-        paper's degenerate adders.
+        paper's degenerate adders.  ``tiles`` is :attr:`data` already on
+        ``x``'s device in its dtype (a caller that multiplies every step
+        places it once); by default it is copied there on each call.
         """
         r, c = self.shape
         nbr, nbc = self.mask.shape
         bk = self.block
         xpad = x.new_zeros(x.shape[:-1] + (nbr * bk,))
         xpad[..., :r] = x
-        data = torch.as_tensor(self.data, device=x.device).to(x.dtype)
+        data = (torch.as_tensor(self.data, device=x.device).to(x.dtype)
+                if tiles is None else tiles)
         out = [None] * nbc
         for i in range(len(self.block_rows)):
             br, bc = int(self.block_rows[i]), int(self.block_cols[i])
@@ -205,15 +217,24 @@ class FixedMatrix:
             mode=self.mode, ones=self.ones)
 
     # -- math ----------------------------------------------------------------
-    def matvec_int_exact(self, a: torch.Tensor) -> torch.Tensor:
+    def device_planes(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """The pos/neg digit planes on ``device`` as float64, the operand
+        type :func:`int_matmul_exact` multiplies in."""
+        return tuple(torch.as_tensor(p, device=device).to(torch.float64)
+                     for p in (self.planes.pos, self.planes.neg))
+
+    def matvec_int_exact(self, a: torch.Tensor,
+                         planes: tuple | None = None) -> torch.Tensor:
         """Exact ``a @ q`` through shifted digit-plane products (int32).
 
         Mirrors the FPGA dataflow: one single-bit dot product per plane,
         shift-combined, PN subtracted.  ``a``: (..., rows) integer.
+        ``planes`` is :meth:`device_planes` of ``a``'s device (a caller
+        that multiplies every step places them once); by default they are
+        copied there on each call.
         """
         a = a.to(torch.int32)
-        pos = torch.as_tensor(self.planes.pos, device=a.device)
-        neg = torch.as_tensor(self.planes.neg, device=a.device)
+        pos, neg = self.device_planes(a.device) if planes is None else planes
         out = torch.zeros(a.shape[:-1] + (self.shape[1],), dtype=torch.int32,
                           device=a.device)
         for b in range(self.planes.width):

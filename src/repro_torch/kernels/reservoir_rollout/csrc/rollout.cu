@@ -430,12 +430,14 @@ int launch(Params p, int n_blocks, int smem, void* stream) {
   if (e != cudaSuccess) return static_cast<int>(e);
   void* args[] = {&p};
   // the cooperative launch refuses a grid whose blocks cannot all be
-  // resident at once (cudaErrorCooperativeLaunchTooLarge): no fallback
+  // resident at once (cudaErrorCooperativeLaunchTooLarge): no fallback.
+  // A refused launch also stays this runtime's last error; it is read
+  // (and so cleared) here, or the next launch's check would report it.
   e = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(rollout_kernel<INT8>), dim3(n_blocks),
       dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 }  // namespace

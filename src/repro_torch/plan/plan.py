@@ -87,6 +87,11 @@ class PlanStats:
     def block_density(self) -> float:
         return self.blocks_nnz / max(self.blocks_total, 1)
 
+    def as_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["block_density"] = self.block_density
+        return d
+
 
 @dataclasses.dataclass(frozen=True)
 class BcsrLayout:
@@ -150,6 +155,10 @@ class RolloutBand:
     n_terms: int
     data_bytes: int            # this band's real tile payload
 
+    @property
+    def n_cols(self) -> int:
+        return self.col_hi - self.col_lo
+
 
 @dataclasses.dataclass(frozen=True)
 class BandedRollout:
@@ -169,6 +178,13 @@ class BandedRollout:
     @property
     def n_terms(self) -> int:
         return sum(b.n_terms for b in self.bands)
+
+    @property
+    def band_data_bytes(self) -> int:
+        """Weight-tile bytes one band holds while it executes (bands share
+        one padded block shape, so this is uniform)."""
+        itemsize = np.dtype(self.data.dtype).itemsize
+        return self.max_terms * self.block * self.block * itemsize
 
     def band_plans(self) -> tuple:
         """Static nested tuple the kernels walk: one entry per band."""
@@ -457,33 +473,48 @@ class ExecutionPlan:
 
 # plan_for cache telemetry.  The cache itself is the matrix instance (the
 # plan rides on ``fm._execution_plan``), so its lifetime is exactly the
-# matrix's; the counters let a long-lived server verify that property.
-_PLAN_CACHE_STATS: dict = {"hits": 0, "misses": 0}
+# matrix's; the counters let a long-lived (multi-tenant) server verify that
+# property, per registry model too.
+_PLAN_CACHE_STATS: dict = {"hits": 0, "misses": 0, "tenants": {}}
 
 
 def plan_cache_stats(reset: bool = False) -> dict:
-    """Cumulative plan_for hit/miss counters (``reset=True`` zeroes them)."""
+    """Cumulative plan_for hit/miss counters (``reset=True`` zeroes them).
+
+    ``tenants`` breaks the counters down by the registry model name passed
+    through ``plan_for(..., tenant=...)``, so a multi-tenant server can
+    verify per model that republishing reuses cached lowerings."""
     out = dict(_PLAN_CACHE_STATS)
+    out["tenants"] = {name: dict(c)
+                      for name, c in _PLAN_CACHE_STATS["tenants"].items()}
     if reset:
         _PLAN_CACHE_STATS.update(hits=0, misses=0)
+        _PLAN_CACHE_STATS["tenants"].clear()
     return out
 
 
-def plan_for(fm: FixedMatrix) -> ExecutionPlan:
+def plan_for(fm: FixedMatrix, tenant: str | None = None) -> ExecutionPlan:
     """The ExecutionPlan for a compiled matrix, cached per instance.
 
     FixedMatrix is frozen by construction, so the plan — like the paper's
     place-and-route result — is computed at most once per matrix, and it
     is released exactly when the matrix is: the cache slot lives on the
-    instance, never in a process-global table.
+    instance, never in a process-global table.  ``tenant`` (a registry
+    model name) attributes the hit/miss to that tenant's counters in
+    :func:`plan_cache_stats`.
     """
     plan = getattr(fm, "_execution_plan", None)
     hit = plan is not None and plan._fm is fm
     if not hit:
-        with obs.timed_span("plan.lower"):
+        with obs.timed_span("plan.lower", tenant=tenant):
             plan = ExecutionPlan(fm)
         fm._execution_plan = plan
-        obs.event("plan_lowering", shape=str(fm.shape))
+        obs.event("plan_lowering", shape=str(fm.shape), tenant=tenant)
     _PLAN_CACHE_STATS["hits" if hit else "misses"] += 1
-    obs.inc("plan_cache_requests_total", outcome="hit" if hit else "miss")
+    obs.inc("plan_cache_requests_total", outcome="hit" if hit else "miss",
+            **({} if tenant is None else {"tenant": tenant}))
+    if tenant is not None:
+        c = _PLAN_CACHE_STATS["tenants"].setdefault(
+            tenant, {"hits": 0, "misses": 0})
+        c["hits" if hit else "misses"] += 1
     return plan

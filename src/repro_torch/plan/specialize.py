@@ -362,20 +362,25 @@ def specialize_rollout(plan: ExecutionPlan, mode: str = "fp32",
 
 
 def int8_recur_reference(program: RolloutProgram, xq: torch.Tensor,
-                         rows_pad: int, out_cols: int) -> torch.Tensor:
+                         rows_pad: int, out_cols: int,
+                         data: torch.Tensor | None = None) -> torch.Tensor:
     """Schedule-driven exact integer recurrent product.
 
     ``xq``: (..., rows) int32 quantized states -> (..., out_cols) int32 —
     bit-identical to ``FixedMatrix.matvec_int_exact`` because every term
     accumulates in exact int32.  The same schedule the CUDA kernel walks,
-    in plain PyTorch (for parity tests).
+    in plain PyTorch: the torch serve backend's culled int8 product, and
+    the parity tests'.  ``data`` is ``program.data`` on ``xq``'s device
+    (any dtype that holds int8 exactly; float64 skips a cast per term);
+    by default it is copied there on each call.
     """
     if program.mode != "int8":
         raise ValueError("int8_recur_reference needs an int8 program")
     bk = program.block
     xp = xq.new_zeros(xq.shape[:-1] + (rows_pad,), dtype=torch.int32)
     xp[..., : xq.shape[-1]] = xq.to(torch.int32)
-    data = torch.as_tensor(program.data, device=xq.device)
+    if data is None:
+        data = torch.as_tensor(program.data, device=xq.device)
     pieces = []
     for bi, band in enumerate(program.schedules):
         for _ci, terms in band:

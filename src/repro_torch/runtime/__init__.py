@@ -1,1 +1,2 @@
-"""Runtime support: deterministic fault injection (``faults``)."""
+"""Runtime support: deterministic fault injection (``faults``) and the
+live-swap contract (``elastic``)."""

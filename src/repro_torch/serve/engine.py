@@ -3,18 +3,26 @@
 The paper's win is specializing the *recurrent* multiply of a frozen
 reservoir; serving-side, the unit of work is therefore the whole rollout
 ``x(n) = f(W_in u(n) + W x(n-1))`` over a request batch, not a single gemv.
-The engine builds from the one shared :class:`repro_torch.plan.ExecutionPlan`
-lowering of the reservoir matrix and fronts the CUDA rollout kernels:
+Every backend builds from the one shared
+:class:`repro_torch.plan.ExecutionPlan` lowering of the reservoir matrix
+and fronts two implementations:
 
-* ``specialize=True`` (default) — :class:`SpecializedRollout`, the
-  plan-specialized kernel (folded int8 tiles + shift-add digits);
-* ``specialize=False`` — :class:`FusedRollout`, the generic banded kernel
-  every specialized schedule is held bit-identical to.
+* ``cuda``  — the CUDA rollout kernels, one launch per call for all T
+  steps with the readout fused: ``specialize=True`` (default) runs
+  :class:`SpecializedRollout` (folded int8 tiles + shift-add digits),
+  ``specialize=False`` :class:`FusedRollout`, the generic banded kernel
+  every specialized schedule is held bit-identical to.  On a CPU device
+  both run their plain PyTorch twins.
+* ``torch`` — a per-step loop of PyTorch ops, the counterpart of the JAX
+  package's ``xla`` scan: the input projection hoisted into one
+  (B*T, I) x (I, R) product, the recurrent product dense or block-culled
+  (dispatched on the plan's block density), int8 through exact integer
+  products, the readout applied after the loop.
 
-On a CPU device both run their plain PyTorch twins.  With a trained
-readout the engine serves *predictions*: the readout kernel applies
-``W_out`` after each step, so the state trajectory is never materialized on
-the prediction path.  The request/response surface is the
+``backend="auto"`` resolves to ``cuda`` (the autotuner that chooses between
+the two is not ported yet).  With a trained readout the engine serves
+*predictions*, so the state trajectory never leaves the engine on the
+prediction path.  The request/response surface is the
 :class:`~repro_torch.serve.api.SubmitSpec` ->
 :class:`~repro_torch.serve.api.RolloutResult` contract (``submit`` /
 ``submit_many``); the chunked scheduler drives :meth:`run_segment`.
@@ -23,6 +31,7 @@ the prediction path.  The request/response surface is the
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
 import warnings
 from typing import Sequence
@@ -32,11 +41,14 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.esn import ESNParams
+from repro_torch.core.sparse import int_matmul_exact
 from repro_torch.device import resolve_device
 from repro_torch.kernels.reservoir_rollout.ops import FusedRollout
 from repro_torch.kernels.reservoir_rollout.specialized import \
     SpecializedRollout
-from repro_torch.plan import DEFAULT_BATCH_TILE, DEFAULT_VMEM_BUDGET, plan_for
+from repro_torch.plan import (DEFAULT_BATCH_TILE, DEFAULT_VMEM_BUDGET,
+                              plan_for, specialize_rollout)
+from repro_torch.plan.specialize import int8_recur_reference
 from repro_torch.serve.api import (RolloutResult, SubmitSpec,
                                    lifecycle_timings)
 from repro_torch.serve.batching import (MicroBatch, PaddingBucketer,
@@ -47,23 +59,57 @@ from repro_torch.serve.stats import ServeStats
 # path (the result still records timings["deadline_ignored"] every time)
 _WARNED_DEADLINE = False
 
-# the only backend until a second one (a torch scan) is ported
-BACKENDS = ("auto",)
+BACKENDS = ("auto", "torch", "cuda")
+
+# Below this nonzero-block density the culled block loop beats one dense
+# (B, R) x (R, R) product; above it the dense product wins.  Reservoirs at
+# the paper's element sparsities (0.75-0.9) have dense *block* structure at
+# block 128, so they take the dense path; block-structured matrices take
+# the culled loop.  The JAX package's value, so both pick one schedule.
+DENSE_DISPATCH_DENSITY = 0.5
+
+
+@contextlib.contextmanager
+def _ieee_fp32(device: torch.device):
+    """fp32 products in IEEE fp32 on a CUDA device, whatever the caller set
+    (TF32 would round the operands to 10 mantissa bits).  The legacy
+    ``allow_tf32`` setter switches both of PyTorch's flags together, and
+    the ``fp32_precision`` getter reads the caller's state without
+    tripping PyTorch's check against mixing the two APIs."""
+    if device.type != "cuda":
+        yield
+        return
+    mm = torch.backends.cuda.matmul
+    old = getattr(mm, "fp32_precision", None)
+    old_legacy = mm.allow_tf32 if old is None else None
+    mm.allow_tf32 = False
+    try:
+        yield
+    finally:
+        if old is None:
+            mm.allow_tf32 = old_legacy
+        elif old == "tf32":
+            mm.allow_tf32 = True
+        else:
+            mm.fp32_precision = old
 
 
 class ReservoirEngine:
     """Batched rollout (and readout) for one frozen ESN on one device.
 
-    ``backend="auto"`` resolves to the kernel backend, reported as
-    ``"cuda"`` (the autotuner that chooses between backends is not ported
-    yet).
-    ``device`` defaults to the params' device.
+    ``backend`` is ``"cuda"`` (the rollout kernels), ``"torch"`` (the
+    per-step PyTorch loop) or ``"auto"`` (``"cuda"``).  ``device``
+    defaults to the params' device.  ``tenant`` is the registry model name
+    the engine serves (None outside a registry); it threads through to the
+    plan-cache tenant counters.
     """
 
     def __init__(self, params: ESNParams, *, backend: str = "auto",
                  stats: ServeStats | None = None,
+                 dense_dispatch_density: float = DENSE_DISPATCH_DENSITY,
                  vmem_budget: int | None = DEFAULT_VMEM_BUDGET,
-                 specialize: bool = True, crossover: int | None = None,
+                 specialize: bool = True, tenant: str | None = None,
+                 crossover: int | None = None,
                  batch_tile_max: int | None = None, device=None):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
@@ -73,32 +119,153 @@ class ReservoirEngine:
         self.device = resolve_device(params.device if device is None
                                      else device)
         self.stats = stats if stats is not None else ServeStats()
-        self.plan = plan_for(params.w)
+        self.tenant = tenant
+        self.plan = plan_for(params.w, tenant=tenant)
         self.specialize = specialize
         self._int8 = self.config.mode.startswith("int8")
-        self.backend = "cuda"
+        self.backend = "cuda" if backend == "auto" else backend
+        self.vmem_budget = vmem_budget
+        self.crossover = crossover
+        self.batch_tile_max = batch_tile_max
         # readout captured at construction; engine_for invalidates the
         # cached engine when params.w_out is replaced (fit_readout)
         self._w_out = params.w_out
-        obs.event("engine_build", backend=self.backend,
+        # plan.block_density (not plan.stats) keeps the fp32 path from
+        # paying for the integer lowering just to make a dispatch decision
+        self.uses_dense = (not self._int8 and
+                           self.plan.block_density >= dense_dispatch_density)
+        # specialized int8: block-dense matrices take one folded integer
+        # product (the whole digit-plane fold), block-sparse ones the
+        # program's culled folded/shift-add schedule
+        self._int8_dense = (self._int8 and specialize and
+                            self.plan.block_density >= dense_dispatch_density)
+        # one tick per (shape, outputs, donate, schedule) key the first
+        # time it is dispatched: the warm-up guard (N chunks of one shape
+        # must set up once, and a prewarm must cover what serving runs)
+        self._traces: collections.Counter = collections.Counter()
+        obs.event("engine_build", backend=self.backend, tenant=tenant,
                   device=str(self.device), specialize=specialize)
         obs.inc("engine_builds_total", backend=self.backend)
-        kw = {}
-        if specialize:
-            kw = {"crossover": crossover,
-                  "batch_tile_max": batch_tile_max or DEFAULT_BATCH_TILE}
-        cls = SpecializedRollout if specialize else FusedRollout
-        self._fused = cls(
-            self.plan, params.w_in, leak=self.config.leak,
-            mode="int8" if self._int8 else "fp32",
-            state_bits=self.config.state_bits, w_out=self._w_out,
-            vmem_budget=vmem_budget, device=self.device, **kw)
+        if self.backend == "cuda":
+            kw = {}
+            if specialize:
+                kw = {"crossover": crossover,
+                      "batch_tile_max": batch_tile_max or DEFAULT_BATCH_TILE}
+            cls = SpecializedRollout if specialize else FusedRollout
+            self._fused = cls(
+                self.plan, params.w_in, leak=self.config.leak,
+                mode="int8" if self._int8 else "fp32",
+                state_bits=self.config.state_bits, w_out=self._w_out,
+                vmem_budget=vmem_budget, device=self.device, **kw)
+        else:
+            self._build_torch()
+
+    # -- torch scan backend --------------------------------------------------
+    def _build_torch(self) -> None:
+        """Place every operand of the per-step loop on the device once:
+        the loop runs T steps per call and must copy nothing from the
+        host per step."""
+        dev, w = self.device, self.params.w
+        as_f32 = lambda a: torch.as_tensor(  # noqa: E731
+            a, dtype=torch.float32, device=dev).contiguous()
+        self._w_in = as_f32(self.params.w_in)
+        self._w_out_dev = None if self._w_out is None else as_f32(self._w_out)
+        self._smax = (1 << (self.config.state_bits - 1)) - 1
+        self._w_dense = self._tiles = self._q_folded = None
+        self._program = self._program_data = self._planes = None
+        schedule = self.torch_schedule
+        if schedule == "fp32-dense":
+            self._w_dense = w.dense_f32(device=dev)
+        elif schedule == "fp32-culled":
+            self._tiles = as_f32(w.blocks.data)
+        elif schedule == "int8-folded-dense":
+            # folded once here: converting (R, R) per step would cost
+            # more than the product (float64 holds every int8 partial sum
+            # exactly, the operand type of int_matmul_exact)
+            self._q_folded = torch.as_tensor(w.q, device=dev).to(
+                torch.float64)
+        elif schedule == "int8-folded-culled":
+            self._program = specialize_rollout(
+                self.plan, "int8", vmem_budget=self.vmem_budget,
+                crossover=self.crossover,
+                batch_tile_max=self.batch_tile_max or DEFAULT_BATCH_TILE)
+            self._program_data = torch.as_tensor(
+                self._program.data, device=dev).to(torch.float64)
+        else:
+            self._planes = w.device_planes(dev)
+
+    def _int_product(self, xq: torch.Tensor) -> torch.Tensor:
+        """The exact int32 ``xq @ q`` of an int8 schedule."""
+        if self._q_folded is not None:
+            return int_matmul_exact(xq, self._q_folded)
+        if self._program is not None:
+            return int8_recur_reference(self._program, xq,
+                                        self.plan.rows_pad,
+                                        self.config.reservoir_dim,
+                                        data=self._program_data)
+        return self.params.w.matvec_int_exact(xq, planes=self._planes)
+
+    def _recur(self, x: torch.Tensor) -> torch.Tensor:
+        """The recurrent product ``x @ W`` of one step, in the schedule
+        :attr:`torch_schedule` names."""
+        if self._int8:
+            smax = self._smax
+            xq = torch.clamp(torch.round(x * smax), -smax - 1,
+                             smax).to(torch.int32)
+            ri = self._int_product(xq)
+            return ri.to(torch.float32) * (self.params.w.scale / smax)
+        if self._w_dense is not None:
+            return x @ self._w_dense
+        return self.params.w.blocks.matmul_ref(x, tiles=self._tiles)
+
+    def _torch_rollout(self, u, x0b, with_readout: bool):
+        """(B, T, I), (B, R) -> (B, T, R or O) and x(T): T steps of Eq. 1,
+        one Python iteration (a handful of launches) per step."""
+        leak = self.config.leak
+        b, t, i = u.shape
+        # one product projects every input of every step before the loop
+        uproj = (u.reshape(b * t, i) @ self._w_in).view(b, t, -1)
+        x = x0b
+        states = []
+        for n in range(t):
+            nxt = torch.tanh(uproj[:, n] + self._recur(x))
+            x = (1.0 - leak) * x + leak * nxt
+            states.append(x)
+        if with_readout:
+            # one (B, R) x (R, O) product per step: its shape does not
+            # depend on T, so chunked predictions equal one-shot ones bit
+            # for bit (a GEMM library picks its sum order by shape)
+            states = [s @ self._w_out_dev for s in states]
+        return torch.stack(states, dim=1), x
+
+    # -- backend dispatch ----------------------------------------------------
+    @property
+    def torch_schedule(self) -> str:
+        """Which recurrent product the torch backend runs (the JAX
+        package's ``xla_schedule`` strings)."""
+        if not self._int8:
+            return "fp32-dense" if self.uses_dense else "fp32-culled"
+        if self._int8_dense:
+            return "int8-folded-dense"
+        if self.specialize:
+            return "int8-folded-culled"
+        return "int8-planes"
 
     @property
     def program(self):
-        """The :class:`~repro_torch.plan.RolloutProgram` behind
-        ``specialize=True`` (None with ``specialize=False``)."""
-        return getattr(self._fused, "program", None)
+        """The cuda backend's :class:`~repro_torch.plan.RolloutProgram`
+        (None on the torch backend or with ``specialize=False``)."""
+        return getattr(getattr(self, "_fused", None), "program", None)
+
+    @property
+    def trace_counts(self) -> collections.Counter:
+        """Rollouts set up per (shape, outputs, final, schedule) key — the
+        warm-up guard: rolling N chunks of one shape must leave every
+        count at exactly 1, and a prewarm must leave nothing for serving
+        to set up.  Unlike the JAX package's key it has no ``donate``: a
+        donated call is no separate program here, only another output
+        buffer for the final state."""
+        return collections.Counter(self._traces)
 
     @property
     def has_readout(self) -> bool:
@@ -106,14 +273,36 @@ class ReservoirEngine:
         defaults to predictions when True, states otherwise)."""
         return self._w_out is not None
 
-    # -- backend dispatch ----------------------------------------------------
+    def _note_key(self, shape, with_readout, with_final) -> None:
+        schedule = (self.torch_schedule if self.backend == "torch"
+                    else self._fused.__class__.__name__)
+        key = (tuple(shape), with_readout, with_final, schedule)
+        if key not in self._traces:
+            self._traces[key] += 1
+            obs.event("rollout_setup", backend=self.backend,
+                      shape=str(tuple(shape)), schedule=schedule)
+            obs.inc("compile_traces_total", backend=self.backend)
+
     def _dispatch(self, u, x0b, with_readout: bool, with_final: bool,
                   donate: bool = False):
         """One rollout call ``(B, T, I), (B, R) -> (out, final_or_None)``.
 
-        ``out`` is (B, T, O) predictions or (B, T, R) states, a transposed
-        view of the kernel's (T, B, *) output.  ``donate`` writes the
-        final state into ``x0b`` in place."""
+        ``out`` is (B, T, O) predictions or (B, T, R) states.  ``donate``
+        writes the final state into ``x0b`` in place (and returns it)."""
+        self._note_key(u.shape, with_readout, with_final)
+        if self.backend == "torch":
+            if donate and not (isinstance(x0b, torch.Tensor)
+                               and x0b.is_contiguous()
+                               and x0b.dtype == torch.float32
+                               and x0b.device == self.device):
+                raise ValueError("donate_state needs x0 as a contiguous "
+                                 "float32 tensor on the engine's device")
+            with _ieee_fp32(self.device):
+                y, xf = self._torch_rollout(u, x0b, with_readout)
+            if donate:
+                xf = x0b.copy_(xf)
+            return y, (xf if with_final else None)
+        # the kernels' outputs are (T, B, *); ``y`` is a transposed view
         out = self._fused(u.transpose(0, 1), x0b,
                           want_states=not with_readout,
                           want_preds=with_readout, want_final=with_final,
@@ -177,10 +366,10 @@ class ReservoirEngine:
 
         One rollout of a batch segment from the carried states, ALWAYS
         returning the post-segment states — the carry the next segment
-        resumes from bit-identically.  ``donate_state=True`` has the
-        kernel write x_end into the caller's ``x0`` buffer in place (and
-        return it), and ``defer_sync=True`` skips the per-call device sync
-        so the serve loop only waits for the device at slot retirement.
+        resumes from bit-identically.  ``donate_state=True`` writes x_end
+        into the caller's ``x0`` buffer in place (and returns it), and
+        ``defer_sync=True`` skips the per-call device sync so the serve
+        loop only waits for the device at slot retirement.
         """
         if not want_states and self._w_out is None:
             raise ValueError("readout not trained; call fit_readout first "
@@ -207,7 +396,11 @@ class ReservoirEngine:
         a spec carrying one warns once per process and the result records
         ``timings["deadline_ignored"] = True``.
         """
-        _reject_model(spec)
+        if spec.model is not None:
+            raise ValueError(
+                f"spec routes to model {spec.model!r} but this is a bare "
+                "single-model engine; submit through a registry-backed "
+                "server (or ModelRegistry.submit)")
         deadline_ignored = spec.deadline is not None
         if deadline_ignored:
             global _WARNED_DEADLINE
@@ -255,7 +448,10 @@ class ReservoirEngine:
         groups: dict[bool, list] = {}
         tids: dict = {}
         for i, spec in enumerate(specs):
-            _reject_model(spec)
+            if spec.model is not None:
+                raise ValueError(
+                    f"spec routes to model {spec.model!r}; submit through "
+                    "a registry-backed server")
             want = self._resolve_want(spec.want_states)
             uid = spec.uid if spec.uid is not None else f"req{i}"
             tids[uid] = spec.trace_id or obs.new_trace_id()
@@ -322,14 +518,6 @@ class ReservoirEngine:
         return preds[0] if single else preds
 
 
-def _reject_model(spec: SubmitSpec) -> None:
-    if spec.model is not None:
-        raise ValueError(
-            f"spec routes to model {spec.model!r}, but model routing "
-            "(the registry) is not ported yet; this is a single-model "
-            "engine")
-
-
 def _host_array(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
@@ -337,29 +525,74 @@ def _host_array(a) -> np.ndarray:
 
 
 # -- bounded engine cache ----------------------------------------------------
-# A long-lived server cycles through many reservoirs; an unbounded
-# per-process cache of engines would grow without limit.  The cache is a
-# module-level LRU keyed on ``(id(params), backend, device)``.  A cached
-# engine holds its params alive, so a live entry's id can never be reused
-# by a different object; after eviction an id *can* recur, which the
-# identity staleness check catches before serving a wrong engine.
+# A long-lived multi-tenant server cycles through many reservoirs; an
+# unbounded per-process cache of engines would grow without limit.  The
+# cache is a module-level LRU with two key regimes:
+#
+# * registry identity ``((name, version), backend, device)`` — the
+#   multi-tenant contract.  (name, version) is stable for the process's
+#   lifetime, so a republished readout with value-equal tensors can NEVER
+#   alias the old version's engine: the version number differs, and the
+#   entry's staleness check still guards params/readout identity on top.
+# * ``(id(params), backend, device)`` — the single-model accessor
+#   (run_reservoir etc.).  A cached engine holds its params alive, so a
+#   live entry's id can never be reused by a different object; after
+#   eviction an id *can* recur, which the identity staleness check
+#   catches before serving a wrong engine.
+#
+# Entries are (engine, kwargs-signature) tuples; per-tenant hit/miss
+# counters land under ``engine_cache_stats()["tenants"]``.
 ENGINE_CACHE_MAX = 32
-_engine_cache: "collections.OrderedDict[tuple, ReservoirEngine]" = \
+_engine_cache: "collections.OrderedDict[tuple, tuple]" = \
     collections.OrderedDict()
-_engine_cache_stats: dict = {"hits": 0, "misses": 0, "evictions": 0}
+_engine_cache_stats: dict = {"hits": 0, "misses": 0, "evictions": 0,
+                             "tenants": {}}
+
+
+def _tenant_counters(name) -> dict:
+    return _engine_cache_stats["tenants"].setdefault(
+        name, {"hits": 0, "misses": 0})
 
 
 def engine_cache_stats(reset: bool = False) -> dict:
-    """Hit/miss/eviction counters of the ``engine_for`` LRU (plus its
-    current size); ``reset=True`` zeroes them."""
+    """Hit/miss/eviction counters of the ``engine_for`` LRU (plus current
+    size and the per-tenant breakdown); ``reset=True`` zeroes them."""
     out = dict(_engine_cache_stats, size=len(_engine_cache))
+    out["tenants"] = {name: dict(c)
+                      for name, c in _engine_cache_stats["tenants"].items()}
     if reset:
         _engine_cache_stats.update(hits=0, misses=0, evictions=0)
+        _engine_cache_stats["tenants"].clear()
     return out
 
 
 def engine_cache_clear() -> None:
     _engine_cache.clear()
+
+
+def engine_cache_demote(tenant) -> int:
+    """Move every cache entry of ``tenant`` — a registry ``(name,
+    version)`` — to the eviction front of the LRU, so a just-retired model
+    version is the first thing churn reclaims.  Returns the number of
+    entries demoted (the engine stays usable until actually evicted:
+    in-flight slots pinned to it finish unaffected)."""
+    demoted = 0
+    for key in list(_engine_cache):
+        if key[0] == tenant:
+            _engine_cache.move_to_end(key, last=False)
+            demoted += 1
+    return demoted
+
+
+def _cache_put(key: tuple, eng: ReservoirEngine, sig: tuple) -> None:
+    _engine_cache[key] = (eng, sig)
+    _engine_cache.move_to_end(key)
+    while len(_engine_cache) > ENGINE_CACHE_MAX:
+        _engine_cache.popitem(last=False)
+        _engine_cache_stats["evictions"] += 1
+    _engine_cache_stats["misses"] += 1
+    obs.event("engine_cache_miss", key=str(key))
+    obs.inc("engine_cache_requests_total", outcome="miss")
 
 
 def _params_stale(eng: ReservoirEngine, params: ESNParams) -> bool:
@@ -372,39 +605,76 @@ def _params_stale(eng: ReservoirEngine, params: ESNParams) -> bool:
 
 
 def engine_for(params: ESNParams, backend: str = "auto", *, device=None,
-               **kwargs) -> ReservoirEngine:
+               tenant=None, build=None, **kwargs) -> ReservoirEngine:
     """Engine accessor with a bounded LRU cache (reservoirs are frozen).
 
-    Keyed on ``(id(params), backend, device)``; non-default kwargs bypass
-    the cache.  Every entry is invalidated by what the engine bakes in at
-    construction — the reservoir matrix, the *readout* (so a stale engine
-    is never served after ``fit_readout`` replaces ``w_out``), and the
+    Without ``tenant`` the key is ``(id(params), backend, device)`` — the
+    ``run_reservoir`` fast path — and non-default kwargs bypass the cache.
+    With ``tenant`` (a registry ``(name, version)`` tuple) the key is the
+    *registry identity*: stable across republishes, so an equal-valued
+    readout under a new version can never alias the retired engine, and
+    hashable kwargs become part of the cached entry (a config change
+    rebuilds).  ``build`` overrides the constructor
+    (``build(params, backend=, device=, **kwargs) -> engine``).
+
+    Every entry is invalidated by what the engine bakes in at construction
+    — the reservoir matrix, the *readout* (so a stale engine is never
+    served after ``fit_readout`` replaces ``w_out``), and the
     leak/mode/precision config.  At most :data:`ENGINE_CACHE_MAX` engines
-    stay resident (least recently used evicted first).
+    stay resident (least recently used evicted first);
+    ``engine_cache_stats()`` exposes the hit/miss/eviction counters,
+    globally and per tenant.  ``backend="auto"`` keys the cache on the
+    backend it resolves to (``cuda``), the same resolution the
+    constructor runs.
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, "
                          f"not {backend!r}")
+    bk = "cuda" if backend == "auto" else backend
     dev = resolve_device(params.device if device is None else device)
-    key = (id(params), "cuda", str(dev))
-    eng = _engine_cache.get(key)
-    if eng is None or kwargs or _params_stale(eng, params):
-        eng = ReservoirEngine(params, backend=backend, device=dev, **kwargs)
-        if not kwargs:
-            _engine_cache[key] = eng
+    if tenant is None:
+        key = (id(params), bk, str(dev))
+        ent = _engine_cache.get(key)
+        eng = ent[0] if ent is not None else None
+        if eng is None or kwargs or _params_stale(eng, params):
+            eng = (build or ReservoirEngine)(params, backend=backend,
+                                            device=dev, **kwargs)
+            if not kwargs and build is None:
+                _cache_put(key, eng, ())
+        else:
             _engine_cache.move_to_end(key)
-            while len(_engine_cache) > ENGINE_CACHE_MAX:
-                _engine_cache.popitem(last=False)
-                _engine_cache_stats["evictions"] += 1
-            _engine_cache_stats["misses"] += 1
-            obs.event("engine_cache_miss", key=str(key))
-            obs.inc("engine_cache_requests_total", outcome="miss")
-    else:
+            _engine_cache_stats["hits"] += 1
+            obs.inc("engine_cache_requests_total", outcome="hit")
+        return eng
+
+    name = tenant[0] if isinstance(tenant, tuple) else tenant
+    counters = _tenant_counters(name)
+    try:
+        sig = tuple(sorted(kwargs.items()))
+        hash(sig)
+    except TypeError as e:
+        raise TypeError(
+            "engine_for(tenant=...) caches on the kwargs signature, so "
+            f"every kwarg must be hashable: {kwargs}") from e
+    key = (tenant, bk, str(dev))
+    ent = _engine_cache.get(key)
+    if (ent is not None and ent[1] == sig
+            and not _params_stale(ent[0], params)):
         _engine_cache.move_to_end(key)
         _engine_cache_stats["hits"] += 1
-        obs.inc("engine_cache_requests_total", outcome="hit")
+        counters["hits"] += 1
+        obs.inc("engine_cache_requests_total", outcome="hit", tenant=name)
+        return ent[0]
+    if build is not None:
+        eng = build(params, backend=backend, device=dev, **kwargs)
+    else:
+        eng = ReservoirEngine(params, backend=backend, tenant=name,
+                              device=dev, **kwargs)
+    _cache_put(key, eng, sig)
+    counters["misses"] += 1
     return eng
 
 
-__all__ = ["BACKENDS", "ENGINE_CACHE_MAX", "ReservoirEngine", "engine_for",
-           "engine_cache_clear", "engine_cache_stats"]
+__all__ = ["BACKENDS", "DENSE_DISPATCH_DENSITY", "ENGINE_CACHE_MAX",
+           "ReservoirEngine", "engine_for", "engine_cache_clear",
+           "engine_cache_demote", "engine_cache_stats"]

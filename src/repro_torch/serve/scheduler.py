@@ -15,12 +15,19 @@ This module serves the same requests decode-style instead:
   bit-identical to a one-shot rollout of the same inputs — the CUDA
   kernels compute every row with the same arithmetic whatever the batch.
 
+The pool is **multi-tenant**: every slot is tagged with the engine its
+request resolved to at admission (via a
+:class:`~repro_torch.serve.registry.ModelRegistry`), one FIFO interleaves
+all tenants under per-tenant quotas/deadlines, and each chunk issues one
+call per *active model* at the full pool shape — rows are independent
+through the recurrence, so cross-tenant interleaving keeps every sequence
+bit-identical to its single-tenant run.
+
 :class:`ContinuousBatcher` owns the slot pool mechanics;
 :class:`AsyncReservoirServer` adds the time-stamped arrival queue, the
-virtual clock, deadlines, and queue-wait / time-to-first-prediction /
-slot-occupancy telemetry on :class:`~repro_torch.serve.stats.ServeStats`.
-This is the single-model server: registry routing, admission policies and
-server-driven fault plans are not ported yet and raise if passed.
+virtual clock, deadlines, admission policies, fault plans and queue-wait /
+time-to-first-prediction / slot-occupancy telemetry on
+:class:`~repro_torch.serve.stats.ServeStats` (per tenant too).
 """
 
 from __future__ import annotations
@@ -50,6 +57,10 @@ class QueuedRequest:
     ``finish_time`` when it retires.  ``deadline`` (absolute, same clock)
     bounds the queue wait: a request still queued past it is dropped —
     counted in ``ServeStats.timed_out`` — instead of occupying a slot.
+
+    ``model`` routes the request to a registry tenant; ``pinned_version``
+    is stamped when the request seats and sticks for its whole life — a
+    live swap never migrates in-flight work to the new version.
     """
 
     request: RolloutRequest
@@ -59,6 +70,8 @@ class QueuedRequest:
     first_output_time: float | None = None
     finish_time: float | None = None
     deadline: float | None = None
+    model: str | None = None             # registry tenant (None = default)
+    pinned_version: int | None = None    # frozen at admission
     want_states: bool | None = None      # None = the pool's default
     trace_id: str | None = None          # observability correlation id
 
@@ -86,17 +99,26 @@ class _DeviceChunk:
 class ContinuousBatcher:
     """A fixed pool of batch slots rolled forward ``chunk_steps`` at a time.
 
-    Each chunk is one engine call per output contract (``want_states``) of
-    the static shape ``(n_slots, chunk_steps, input_dim)`` — free slots
-    ride along as inert rows — with the pool's reservoir states passed as
-    ``x0`` and the post-chunk states carried through ``run_segment``.  Rows
-    are independent through the recurrence, so a sequence's chunked
-    trajectory equals its one-shot rollout bit for bit.
+    Single-tenant chunks are one engine call per output contract
+    (``want_states``) of the static shape ``(n_slots, chunk_steps,
+    input_dim)`` — free slots ride along as inert rows — with the pool's
+    reservoir states passed as ``x0`` and the post-chunk states carried
+    through ``run_segment``.  Rows are independent through the recurrence,
+    so a sequence's chunked trajectory equals its one-shot rollout bit for
+    bit.
+
+    Multi-tenant chunks group the occupied slots by their admission-pinned
+    engine (``resolver``: request -> engine, the registry routing hook;
+    None pins every slot to ``engine``) and issue one call *per active
+    model*, each at the full pool shape — the same shape, and therefore
+    the same per-row arithmetic, as the single-tenant chunk, which keeps
+    cross-tenant interleaving bit-exact.  Post-chunk states merge by exact
+    row selection (``torch.where``).
     """
 
     def __init__(self, engine, *, n_slots: int = 8, chunk_steps: int = 16,
                  want_states: bool | None = None,
-                 zero_copy: bool | None = None):
+                 zero_copy: bool | None = None, resolver=None):
         if n_slots < 1 or chunk_steps < 1:
             raise ValueError("n_slots and chunk_steps must be >= 1")
         self.engine = engine
@@ -106,6 +128,8 @@ class ContinuousBatcher:
         if want_states is None:
             want_states = not engine.has_readout
         self.want_states = want_states
+        self._resolver = resolver
+        self._slot_engines = [engine] * n_slots
         # zero-copy chunk serving: request inputs move to the device ONCE
         # at admission (into a resident (n_slots, max_chunks, cs, I)
         # buffer), one index_select assembles each chunk's input
@@ -131,29 +155,65 @@ class ContinuousBatcher:
             self._u_dev = torch.zeros(
                 (n_slots, self._max_chunks, chunk_steps, self._in_dim),
                 device=self.device)
-        # fault injection: transient engine-call failures raised by an
-        # attached FaultPlan are retried here with capped exponential
-        # backoff; the backoff and retry count of the last chunk land in
-        # last_backoff_s / last_retries for the server to account
+        # fault injection (set by the server): transient engine-call
+        # failures raised by the plan are retried here with capped
+        # exponential backoff; the backoff and retry count of the last
+        # chunk land in last_backoff_s / last_retries for the server
         self.fault_plan = None
         self.last_backoff_s = 0.0
         self.last_retries = 0
-        self.warm()
+        self._warm()
 
     def _want_of(self, qreq: QueuedRequest) -> bool:
         return (self.want_states if qreq.want_states is None
                 else qreq.want_states)
 
-    def warm(self) -> None:
-        """Build the kernels and run the pool's chunk shape once, off the
-        serving clock (bypasses the engine's public API so warmup never
-        pollutes ``ServeStats``)."""
-        want_states = self.want_states if self.engine.has_readout else True
+    def _check_dims(self, engine) -> None:
+        cfg = engine.config
+        if (cfg.input_dim != self._in_dim
+                or cfg.reservoir_dim != self._dim):
+            raise ValueError(
+                f"engine dims (I={cfg.input_dim}, R={cfg.reservoir_dim}) "
+                f"do not match the pool's (I={self._in_dim}, "
+                f"R={self._dim}): models sharing a slot pool must share "
+                "input/reservoir dims — serve differently-sized models "
+                "from separate pools")
+        if engine.device != self.device:
+            raise ValueError(
+                f"engine on {engine.device}, pool on {self.device}: models "
+                "sharing a slot pool must share its device")
+
+    def _warm(self) -> None:
+        """Run the pool's chunk shape on the default engine once, off the
+        serving clock (nothing to warm when the pool answers predictions
+        and the engine has no readout: run_chunk raises the clear error)."""
+        if self.want_states or self.engine.has_readout:
+            self.warm_engine(self.engine)
+
+    def warm_engine(self, engine, want_states: bool | None = None) -> None:
+        """Run ``engine``'s pool-shaped chunk call once, off the serving
+        clock.
+
+        Used at construction for the default engine, and by
+        :meth:`ModelRegistry.publish` to prepare a *new model version
+        behind live traffic* — kernel builds, table uploads and launch
+        set-up are paid before cutover, never by the scheduler.  One call
+        covers both of the zero-copy path's chunk calls (the donated
+        single-tenant one and the non-donated one of mixed, multi-model
+        chunks): donation only picks the buffer the final state is
+        written to, so nothing is set up per variant (the JAX package
+        warms each, as each is a program of its own there).  Bypasses
+        the engine's public API so warmup never pollutes ``ServeStats``.
+        """
+        self._check_dims(engine)
+        if want_states is None:
+            want_states = (self.want_states if engine.has_readout
+                           else True)
         u = torch.zeros((self.n_slots, self.chunk_steps, self._in_dim),
                         device=self.device)
         x0 = torch.zeros((self.n_slots, self._dim), device=self.device)
-        self.engine._dispatch(u, x0, not want_states, True, self.zero_copy)
-        self.engine._sync()
+        engine._dispatch(u, x0, not want_states, True, self.zero_copy)
+        engine._sync()
 
     @property
     def live(self) -> int:
@@ -163,12 +223,22 @@ class ContinuousBatcher:
         return any(s is None for s in self._slots)
 
     def admit(self, qreq: QueuedRequest) -> int:
-        """Seat a request in a free slot (zero state, or its ``x0``)."""
-        if not self._want_of(qreq) and not self.engine.has_readout:
+        """Seat a request in a free slot (zero state, or its ``x0``).
+
+        The slot is tagged with the engine the request resolves to —
+        through the ``resolver`` (registry routing, which also pins the
+        model version on the request) or the pool default — and keeps it
+        for the request's whole life.
+        """
+        eng = (self.engine if self._resolver is None
+               else self._resolver(qreq))
+        self._check_dims(eng)
+        if not self._want_of(qreq) and not eng.has_readout:
             raise ValueError(
                 "readout not trained on the serving engine; submit with "
                 "want_states=True")
         slot = self._slots.index(None)
+        self._slot_engines[slot] = eng
         self._slots[slot] = qreq
         self._pos[slot] = 0
         self._chunks[slot] = []
@@ -210,9 +280,13 @@ class ContinuousBatcher:
         chunk actually consumed (the occupancy numerator).  Sequences that
         finish inside the chunk stop accumulating output at their real
         length (the recurrence is causal, so the zero-padded tail steps
-        cannot reach them).  Occupied slots are grouped by output
-        contract; each group is one full-pool call and the post-chunk
-        states merge by exact row selection (``torch.where``).
+        cannot reach them).
+
+        Occupied slots are grouped by their admission-pinned ``(engine,
+        want_states)``; each group is one full-pool ``run_segment`` and
+        the post-chunk states merge by exact row selection
+        (``torch.where``).  A single-group chunk is one call with the
+        carry written in place on the zero-copy path.
         """
         cs = self.chunk_steps
         take: dict[int, int] = {}
@@ -243,26 +317,30 @@ class ContinuousBatcher:
                 u_host[i, :len(seg)] = seg
                 take[i] = len(seg)
             u = torch.from_numpy(u_host).to(self.device)
-        groups: dict[bool, list[int]] = {}
+        # group occupied slots by pinned (engine, contract); dict order
+        # follows slot index, so the call order is deterministic
+        groups: dict = {}
         for i, q in enumerate(self._slots):
             if q is not None:
-                groups.setdefault(self._want_of(q), []).append(i)
+                eng, want = self._slot_engines[i], self._want_of(q)
+                key = (id(eng), want)
+                groups.setdefault(key, (eng, want, []))[2].append(i)
         if not groups:
             # empty pool (direct run_chunk call): one inert full-pool roll
-            groups = {self.want_states: []}
+            groups = {None: (self.engine, self.want_states, [])}
         single = len(groups) == 1
         prev = self._states
         new_states = None
         self.last_backoff_s = 0.0
         self.last_retries = 0
-        for want, slots in groups.items():
-            # one group: the kernel writes the final state into the carried
-            # buffer in place.  With several groups every call reads
-            # ``prev``, so none may overwrite it; an attached fault plan
-            # also keeps ``prev`` intact so a retry replays from it.
+        for eng, want, slots in groups.values():
+            # one group: the carry is written into the state buffer in
+            # place.  With several groups every call reads ``prev``, so
+            # none may overwrite it; an attached fault plan also keeps
+            # ``prev`` intact so a retry replays from it.
             donate = self.zero_copy and single and self.fault_plan is None
             out, xf = self._faulting_call(
-                u, prev, want=want,
+                eng, u, prev, want=want,
                 real_steps=sum(take.get(i, 0) for i in slots),
                 donate=donate)
             if single:
@@ -296,10 +374,11 @@ class ContinuousBatcher:
                 retired.append((q, self._assemble(i)))
                 self._slots[i] = None
                 self._chunks[i] = []
+                self._slot_engines[i] = self.engine
         return retired, sum(take.values())
 
-    def _faulting_call(self, u, prev, *, want, real_steps, donate):
-        """One chunk launch under the (optional) fault plan.
+    def _faulting_call(self, eng, u, prev, *, want, real_steps, donate):
+        """One chunk call of ``eng`` under the (optional) fault plan.
 
         An injected :class:`~repro_torch.runtime.faults.TransientFault` is
         retried with capped exponential backoff *from the slots' last
@@ -314,7 +393,7 @@ class ContinuousBatcher:
             try:
                 if fp is not None:
                     fp.check_call()
-                return self.engine.run_segment(
+                return eng.run_segment(
                     u, prev, want_states=want, real_steps=real_steps,
                     donate_state=donate, defer_sync=self.zero_copy)
             except TransientFault:
@@ -358,7 +437,21 @@ class AsyncReservoirServer:
     timestamps; ``run()`` (or repeated ``step()`` calls) drains the queue:
     admit every arrived request that fits the pool, roll one chunk, retire
     finished sequences, repeat.  Admission is strictly FIFO in
-    (arrival_time, submission order).
+    (arrival_time, submission order), except that a request held back only
+    by its tenant's concurrency quota steps aside for later arrivals (it
+    stays queued and is re-considered every sweep).
+
+    Attach a :class:`~repro_torch.serve.registry.ModelRegistry`
+    (``registry=``) to serve many models from one pool: a spec with
+    ``model="name"`` resolves (and pins) the registry's active version at
+    admission, the chunk loop groups slots per model, and per-tenant
+    telemetry lands in ``tenant_stats``.  ``registry.publish()`` swaps a
+    model live: in-flight slots keep their pinned engine, new admissions
+    take the new one.  ``admission=`` (an
+    :class:`~repro_torch.serve.admission.AdmissionPolicy`) is consulted at
+    submit time; ``fault_plan=`` (a
+    :class:`~repro_torch.runtime.faults.FaultPlan`) is driven by this
+    server's clock.
 
     The server keeps a virtual clock ``now``: it advances by each chunk's
     measured wall time (or the fixed ``chunk_time`` if given — for
@@ -374,16 +467,13 @@ class AsyncReservoirServer:
                  batcher: ContinuousBatcher | None = None,
                  zero_copy: bool | None = None,
                  registry=None, admission=None, fault_plan=None):
-        for name, value in (("registry", registry), ("admission", admission),
-                            ("fault_plan", fault_plan)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name}= is not ported yet (single-model server); "
-                    "see ROADMAP items A7 and A9")
         if batcher is None:
             batcher = ContinuousBatcher(
                 engine, n_slots=n_slots, chunk_steps=chunk_steps,
-                want_states=want_states, zero_copy=zero_copy)
+                want_states=want_states, zero_copy=zero_copy,
+                resolver=self._resolve_engine)
+        elif batcher._resolver is None:
+            batcher._resolver = self._resolve_engine
         self.batcher = batcher
         self.stats = stats if stats is not None else engine.stats
         self.chunk_time = chunk_time
@@ -392,24 +482,89 @@ class AsyncReservoirServer:
         self.admission_order: list = []        # uids in the order seated
         self._queue: list[tuple[float, int, QueuedRequest]] = []
         self._seq = 0
+        self.registry = None
+        self.tenant_stats: dict[str, ServeStats] = {}
+        # backpressure: consulted at submit time; None accepts everything
+        self.admission = admission
+        # the plan is driven by this server's clock and consulted by the
+        # batcher's chunk calls
+        self.fault_plan = fault_plan
+        self.batcher.fault_plan = fault_plan
+        if registry is not None:
+            registry.attach(self)
+
+    # -- multi-tenant plumbing -----------------------------------------------
+    def _tstats(self, model: str | None) -> ServeStats | None:
+        if model is None:
+            return None
+        st = self.tenant_stats.get(model)
+        if st is None:
+            st = self.tenant_stats[model] = ServeStats()
+        return st
+
+    def tenant_summary(self) -> ServeStats:
+        """Per-tenant breakdown merged into one view (``.shards`` keyed by
+        model name)."""
+        names = sorted(self.tenant_stats)
+        return ServeStats.merge([self.tenant_stats[n] for n in names],
+                                labels=names)
+
+    def _resolve_engine(self, qreq: QueuedRequest):
+        """Admission-time routing: pin the model's active version to the
+        request (a later ``publish()`` must not migrate it) and return its
+        engine."""
+        if qreq.model is None or self.registry is None:
+            return self.batcher.engine
+        if qreq.pinned_version is None:
+            qreq.pinned_version = self.registry.active_version(qreq.model)
+        return self.registry.engine(qreq.model, qreq.pinned_version)
+
+    def prewarm_model(self, name: str, version: int):
+        """Build a model version's engine and run this pool's chunk shape
+        on it before any request routes to it — ``publish()`` calls this
+        on every attached server so cutover never builds under traffic."""
+        eng = self.registry.engine(name, version)
+        self.batcher.warm_engine(eng)
+        return eng
+
+    @staticmethod
+    def _labels(qreq: QueuedRequest) -> dict:
+        """Metric labels of one request: its tenant when routed."""
+        return {} if qreq.model is None else {"model": qreq.model}
 
     # -- queue ---------------------------------------------------------------
     def submit(self, spec: SubmitSpec, arrival_time: float | None = None,
-               deadline: float | None = None) -> QueuedRequest:
+               deadline: float | None = None):
         """Enqueue one :class:`SubmitSpec`; ``arrival_time`` defaults to
-        ``now``.  ``deadline`` (or ``spec.deadline``, which wins) is an
-        absolute time on the server's clock: a request still waiting in
-        the queue past it is dropped (``timed_out`` in stats) rather than
-        seated.  A request already in a slot always runs to completion."""
+        ``now``.
+
+        ``deadline`` (or ``spec.deadline``, which wins) is an absolute
+        time on the server's clock: a request still waiting in the queue
+        past it is dropped (``timed_out`` in stats) rather than seated.  A
+        request already in a slot always runs to completion.  A spec
+        naming a ``model`` routes through the attached registry and
+        inherits its per-tenant deadline policy when neither deadline is
+        given.
+
+        Returns the :class:`QueuedRequest`, or — when the attached
+        admission policy refuses it — a ``RolloutResult(status=
+        "rejected")`` carrying the reason and a ``retry_after_s`` hint in
+        ``timings``: bounded backpressure, never silent unbounded
+        queueing.
+        """
         if not isinstance(spec, SubmitSpec):
             raise TypeError("submit takes a SubmitSpec")
-        if spec.model is not None:
+        if spec.model is not None and self.registry is None:
             raise ValueError(
-                f"SubmitSpec routes to model {spec.model!r}, but model "
-                "routing (the registry) is not ported yet")
+                f"SubmitSpec routes to model {spec.model!r} but this "
+                "server has no registry attached")
         at = self.now if arrival_time is None else float(arrival_time)
         uid = spec.uid if spec.uid is not None else f"req{self._seq}"
         dl = spec.deadline if spec.deadline is not None else deadline
+        if dl is None and spec.model is not None:
+            rel = self.registry.deadline_s(spec.model)
+            if rel is not None:
+                dl = at + rel
         inputs = spec.inputs
         if isinstance(inputs, torch.Tensor):
             inputs = inputs.detach().cpu().numpy()
@@ -417,26 +572,76 @@ class AsyncReservoirServer:
             RolloutRequest(uid, np.asarray(inputs, np.float32), x0=spec.x0),
             arrival_time=at, seq=self._seq,
             deadline=None if dl is None else float(dl),
-            want_states=spec.want_states,
+            model=spec.model, want_states=spec.want_states,
             trace_id=spec.trace_id or obs.new_trace_id())
         self._seq += 1
+        if self.admission is not None:
+            verdict = self.admission.admit(self, qreq)
+            if verdict is not None:
+                return self._reject(qreq, verdict)
         heapq.heappush(self._queue, (at, qreq.seq, qreq))
         self.stats.record_enqueue()
-        obs.inc("requests_submitted_total")
+        obs.inc("requests_submitted_total", **self._labels(qreq))
         obs.span("request.enqueue", at, trace_id=qreq.trace_id,
-                 clock="server", uid=str(qreq.uid))
+                 clock="server", uid=str(qreq.uid), model=qreq.model)
+        ts = self._tstats(qreq.model)
+        if ts is not None:
+            ts.record_enqueue()
         return qreq
+
+    def _reject(self, qreq: QueuedRequest, verdict) -> RolloutResult:
+        """Refuse one submission at the door: count it (``rejected`` or
+        ``shed``) and answer an explicit ``status="rejected"`` result with
+        the reason and the policy's retry-after hint.  The request never
+        enters the queue and never counts in ``enqueued``/``timed_out``."""
+        self.stats.record_rejection(shed=verdict.shed)
+        obs.inc("requests_shed_total" if verdict.shed
+                else "requests_rejected_total",
+                reason=verdict.reason, **self._labels(qreq))
+        obs.span("request.reject", self.now, trace_id=qreq.trace_id,
+                 clock="server", uid=str(qreq.uid), reason=verdict.reason)
+        ts = self._tstats(qreq.model)
+        if ts is not None:
+            ts.record_rejection(shed=verdict.shed)
+        timings = lifecycle_timings(
+            arrival_time=qreq.arrival_time, admit_time=qreq.arrival_time,
+            finish_time=qreq.arrival_time, model=qreq.model,
+            trace_id=qreq.trace_id)
+        timings["reason"] = verdict.reason
+        timings["retry_after_s"] = float(verdict.retry_after_s)
+        result = RolloutResult(timings=timings, status="rejected")
+        self.results[qreq.uid] = result
+        return result
+
+    @property
+    def pending(self) -> int:
+        return len(self._queue)
 
     @property
     def drained(self) -> bool:
         return not self._queue and self.batcher.live == 0
 
+    def _over_quota(self, qreq: QueuedRequest) -> bool:
+        """Would seating this request push its tenant past its registry
+        concurrency quota (live slots of the same model)?"""
+        if qreq.model is None or self.registry is None:
+            return False
+        quota = self.registry.quota(qreq.model)
+        if quota is None:
+            return False
+        live = sum(1 for q in self.batcher._slots
+                   if q is not None and q.model == qreq.model)
+        return live >= quota
+
     def _timeout(self, qreq: QueuedRequest) -> None:
         """Bookkeeping for one queued request dropped past its deadline."""
         self.stats.record_timeout()
-        obs.inc("requests_timed_out_total")
+        obs.inc("requests_timed_out_total", **self._labels(qreq))
         obs.span("request.timeout", self.now, trace_id=qreq.trace_id,
                  clock="server", uid=str(qreq.uid))
+        ts = self._tstats(qreq.model)
+        if ts is not None:
+            ts.record_timeout()
 
     def _drop_expired(self) -> None:
         """Drop every *arrived* queued request whose deadline has passed —
@@ -456,6 +661,7 @@ class AsyncReservoirServer:
             self._timeout(qreq)
 
     def _admit_arrived(self) -> None:
+        held: list[tuple[float, int, QueuedRequest]] = []
         while self._queue and self._queue[0][0] <= self.now:
             qreq = self._queue[0][2]
             if qreq.deadline is not None and self.now > qreq.deadline:
@@ -464,16 +670,30 @@ class AsyncReservoirServer:
                 continue
             if not self.batcher.has_free_slot():
                 break
+            if self._over_quota(qreq):
+                # set the request aside for this sweep so tenants under
+                # quota seat past it; it rejoins the queue (original FIFO
+                # key) for the next sweep
+                held.append(heapq.heappop(self._queue))
+                self.stats.record_quota_hold()
+                obs.inc("quota_holds_total", **self._labels(qreq))
+                self._tstats(qreq.model).record_quota_hold()
+                continue
             heapq.heappop(self._queue)
             qreq.admit_time = self.now
             slot = self.batcher.admit(qreq)
             self.admission_order.append(qreq.uid)
             wait = self.now - qreq.arrival_time
             self.stats.record_admission(wait)
-            obs.observe("queue_wait_seconds", wait)
+            obs.observe("queue_wait_seconds", wait, **self._labels(qreq))
             obs.span("request.queued", qreq.arrival_time, self.now,
                      trace_id=qreq.trace_id, clock="server",
                      uid=str(qreq.uid), slot=slot)
+            ts = self._tstats(qreq.model)
+            if ts is not None:
+                ts.record_admission(wait)
+        for entry in held:
+            heapq.heappush(self._queue, entry)
 
     # -- results -------------------------------------------------------------
     def _package(self, qreq: QueuedRequest, out) -> RolloutResult:
@@ -485,9 +705,18 @@ class AsyncReservoirServer:
                                  admit_time=qreq.admit_time,
                                  finish_time=qreq.finish_time,
                                  first_output_time=qreq.first_output_time,
+                                 model=qreq.model,
+                                 version=qreq.pinned_version,
                                  trace_id=qreq.trace_id))
 
     # -- event loop ----------------------------------------------------------
+    def _handle_faults(self) -> None:
+        """Fault-plan hook between clock activation and admission.  The
+        single-device pool has no shards to lose (transient failures are
+        retried inside the batcher, straggler windows charged at clock
+        advance); a sharded server overrides this to act on shard
+        deaths."""
+
     def step(self) -> bool:
         """Admit + one chunk + retire.  Returns False once drained."""
         if self.drained:
@@ -495,6 +724,9 @@ class AsyncReservoirServer:
         if self.batcher.live == 0 and self._queue:
             # pool idle: fast-forward the clock to the next arrival
             self.now = max(self.now, self._queue[0][0])
+        if self.fault_plan is not None:
+            self.fault_plan.begin_chunk(self.now)
+            self._handle_faults()
         self._admit_arrived()
         if self.batcher.live == 0:
             # everything at the head expired (or only future arrivals are
@@ -505,6 +737,9 @@ class AsyncReservoirServer:
         retired, real_steps = self.batcher.run_chunk()
         wall = time.perf_counter() - t0
         dt = wall if self.chunk_time is None else self.chunk_time
+        if self.fault_plan is not None:
+            # a straggler window inflates the chunk's charge
+            dt = dt * self.fault_plan.slow_factor()
         # retry backoff from transient failures is time the requests
         # really waited
         self.now += dt + self.batcher.last_backoff_s
@@ -522,12 +757,16 @@ class AsyncReservoirServer:
             latency = self.now - qreq.arrival_time
             self.results[qreq.uid] = self._package(qreq, out)
             self.stats.record_completion(latency)
+            labels = self._labels(qreq)
             obs.observe("request_latency_seconds", latency,
-                        path="scheduler")
-            obs.inc("requests_completed_total")
+                        path="scheduler", **labels)
+            obs.inc("requests_completed_total", **labels)
             obs.span("request.serve", qreq.admit_time, self.now,
                      trace_id=qreq.trace_id, clock="server",
-                     uid=str(qreq.uid))
+                     uid=str(qreq.uid), **labels)
+            ts = self._tstats(qreq.model)
+            if ts is not None:
+                ts.record_completion(latency)
         # first-output marks: every seated-or-just-retired request that has
         # produced output by the end of this chunk
         for qreq in list(self.batcher._slots) + [q for q, _ in retired]:
@@ -536,10 +775,13 @@ class AsyncReservoirServer:
                 qreq.first_output_time = self.now
                 ttfp = self.now - qreq.arrival_time
                 self.stats.record_first_output(ttfp)
-                obs.observe("ttfp_seconds", ttfp)
+                obs.observe("ttfp_seconds", ttfp, **self._labels(qreq))
                 obs.span("request.first_output", self.now,
                          trace_id=qreq.trace_id, clock="server",
                          uid=str(qreq.uid))
+                ts = self._tstats(qreq.model)
+                if ts is not None:
+                    ts.record_first_output(ttfp)
                 res = self.results.get(qreq.uid)
                 if res is not None:
                     res.timings["first_output_time"] = self.now
@@ -547,7 +789,8 @@ class AsyncReservoirServer:
         return True
 
     def run(self) -> dict:
-        """Drain the queue; returns ``{uid: RolloutResult}``."""
+        """Drain the queue; returns ``{uid: RolloutResult}`` (rejected
+        submissions included, with ``status="rejected"``)."""
         while self.step():
             pass
         return self.results

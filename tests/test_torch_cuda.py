@@ -7,8 +7,13 @@ launch); int8 kernel states equal the plain twins' exactly and B1's equal
 B2's; fp32 within 1e-4 (another summation order in the tile products),
 readouts within 1e-4; a donated carry resumes bit for bit.  Bitplane gemv
 and the integer BCSR product equal their twins exactly; float BCSR products
-and reservoir-step trajectories within 1e-4.
+and reservoir-step trajectories within 1e-4.  The torch serve backend on
+the card: within 1e-4 of the kernels, its int8 products exact, fp32 kept
+under a caller's TF32 setting; registry, live swap and fault plan in one
+zero-copy pool, bit-exact against the pinned engines.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -220,7 +225,8 @@ def test_rollout_launch_too_large_raises(cuda):
     """fp32 at dim 2048: one 16-row state tile takes 128 KiB, so an SM
     holds one block.  The default grid fits the card and runs; 256 blocks
     of 8 columns do not, and the cooperative launch refuses: the wrapper
-    raises and counts nothing (no per-step fallback)."""
+    raises and counts nothing (no per-step fallback), and the refusal
+    does not linger: the next launch runs and reports success."""
     rng = np.random.default_rng(0)
     fm = FixedMatrix.compile(random_sparse_matrix(2048, 2048, 0.99, rng)
                              * 0.05, weight_bits=8, mode="csd", block=128,
@@ -240,6 +246,9 @@ def test_rollout_launch_too_large_raises(cuda):
         _run(specialized_rollout, op, u, x0, 4, 1, n_blocks=256,
              want_states=True)
     assert specialized_rollout.launches == before
+    s, n, ro = _run(specialized_rollout, op, u, x0, 4, 1, want_states=True)
+    torch.cuda.synchronize()
+    assert (n, ro) == (1, 0) and torch.equal(s, torch.zeros_like(s))
 
 
 # -- fixed-matrix kernels (B3, B4, B5) against their twins on the card --------
@@ -437,3 +446,150 @@ def test_reservoir_step_share_too_large_raises(cuda):
     with pytest.raises(ValueError, match=r"\(20480, 20480\)"):
         reservoir_step(x, w, u, w_in)
     assert reservoir_step.launches == before
+
+
+# -- the torch serve backend on the card --------------------------------------
+def _esn(mode, cuda, dim=256, es=0.9, block=64, leak=0.7, input_dim=1):
+    from repro_torch.core.esn import ESNConfig, init_esn
+    cfg = ESNConfig(reservoir_dim=dim, element_sparsity=es, mode=mode,
+                    leak=leak, seed=3, block=block, output_dim=2,
+                    input_dim=input_dim)
+    p = init_esn(cfg, device=cuda)
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    w_out = (0.1 * torch.randn((dim, 2), generator=gen)).to(cuda)
+    return dataclasses.replace(p, w_out=w_out)
+
+
+_BACKEND_CASES = [("fp32", {}), ("fp32", {"dense_dispatch_density": 2.0}),
+                  ("int8-csd", {}),
+                  ("int8-csd", {"dense_dispatch_density": 2.0}),
+                  ("int8-csd", {"specialize": False})]
+
+
+@pytest.mark.parametrize("mode,kw", _BACKEND_CASES)
+def test_torch_backend_matches_kernels_on_the_card(cuda, mode, kw):
+    """The torch backend's states and predictions vs the cuda backend's
+    (B2 / B1 launches) on the same card: within 1e-4 (the hoisted input
+    projection and the readout sum in another order; int8 products are
+    exact in both); chunked == one-shot bit for bit on both."""
+    from repro_torch.serve import ReservoirEngine
+    p = _esn(mode, cuda)
+    t = ReservoirEngine(p, backend="torch", **kw)
+    c = ReservoirEngine(p, backend="cuda", **kw)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    u = torch.randn((16, 24, 1), generator=gen).to(cuda)
+    x0 = (0.3 * torch.randn((16, 256), generator=gen)).to(cuda)
+    for want_states in (True, False):
+        ts, tf = t.run_segment(u, x0, want_states=want_states)
+        cs, cf = c.run_segment(u, x0, want_states=want_states)
+        torch.cuda.synchronize()
+        assert (ts - cs).abs().max().item() <= 1e-4
+        assert (tf - cf).abs().max().item() <= 1e-4
+    for eng in (t, c):
+        one, xf = eng.run_segment(u, x0)
+        carry = x0.clone()
+        a, _ = eng.run_segment(u[:, :8], carry, donate_state=True)
+        b, last = eng.run_segment(u[:, 8:], carry, donate_state=True)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat([a, b], dim=1), one)
+        assert torch.equal(last, xf) and last.data_ptr() == carry.data_ptr()
+
+
+@pytest.mark.parametrize("mode,kw", _BACKEND_CASES[2:])
+def test_torch_backend_int8_products_exact_on_the_card(cuda, mode, kw):
+    """The int8 schedules' products (float64 products of integers on the
+    card) == matvec_int_exact and the integer ``xq @ q`` exactly."""
+    from repro_torch.serve import ReservoirEngine
+    p = _esn(mode, cuda)
+    eng = ReservoirEngine(p, backend="torch", **kw)
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    xq = torch.randint(-128, 128, (16, 256), generator=gen,
+                       dtype=torch.int32).to(cuda)
+    got = eng._int_product(xq)
+    want = p.w.matvec_int_exact(xq)
+    dense = p.w.matvec_int_dense_ref(xq.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got.cpu(), dense)
+
+
+def test_torch_backend_keeps_fp32_under_tf32(cuda):
+    """A caller that turns TF32 on does not change the fp32 backend's
+    bits: its products run in IEEE fp32 regardless, and the caller's
+    setting is back in place after the call."""
+    from repro_torch.serve import ReservoirEngine
+    p = _esn("fp32", cuda)
+    eng = ReservoirEngine(p, backend="torch")
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    u = torch.randn((16, 16, 1), generator=gen).to(cuda)
+    x0 = torch.zeros((16, 256), device=cuda)
+    mm = torch.backends.cuda.matmul
+    old = mm.allow_tf32
+    try:
+        mm.allow_tf32 = False
+        want, _ = eng.run_segment(u, x0)
+        mm.allow_tf32 = True
+        got, _ = eng.run_segment(u, x0)
+        assert mm.allow_tf32 is True
+    finally:
+        mm.allow_tf32 = old
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_registry_swap_and_faults_on_the_card(cuda, backend):
+    """Two models (B2's specialized and B1's generic) in one zero-copy
+    pool on the card, a live publish and a transient fault: zero drops,
+    versions pinned, every answer bit-exact against its pinned engine at
+    the pool shape, and the retries recorded."""
+    from repro_torch.runtime.faults import FaultEvent, FaultPlan
+    from repro_torch.serve import (AsyncReservoirServer, ModelRegistry,
+                                   SubmitSpec)
+    reg = ModelRegistry(backend=backend)
+    reg.register("a", _esn("int8-csd", cuda))
+    reg.register("b", _esn("int8-csd", cuda, leak=0.5), specialize=False)
+    plan = FaultPlan([FaultEvent("transient", at=1.0, count=2)])
+    srv = AsyncReservoirServer(reg.engine("a"), n_slots=4, chunk_steps=8,
+                               chunk_time=1.0, registry=reg, fault_plan=plan)
+    assert srv.batcher.zero_copy
+    rng = np.random.default_rng(8)
+    inputs = [rng.standard_normal((int(n), 1)).astype(np.float32)
+              for n in rng.integers(8, 40, 10)]
+    handles = [srv.submit(SubmitSpec(u, model="ab"[i % 2], uid=i),
+                          arrival_time=0.5 * i)
+               for i, u in enumerate(inputs)]
+    published = False
+    while srv.step():
+        if not published and srv.stats.completed >= 2:
+            reg.publish("a", dataclasses.replace(
+                reg.get("a").params, w_out=reg.get("a").params.w_out * 2))
+            published = True
+    assert published and len(srv.results) == len(inputs)
+    assert srv.stats.retries == 2
+    for i, q in enumerate(handles):
+        eng = reg.engine(q.model, q.pinned_version)
+        batch = torch.as_tensor(np.broadcast_to(
+            inputs[i][None], (4,) + inputs[i].shape).copy(), device=cuda)
+        want = eng.predictions(batch)[0].cpu().numpy()
+        np.testing.assert_array_equal(srv.results[i].preds, want)
+        assert srv.results[i].timings["version"] == q.pinned_version
+    assert {q.pinned_version for q in handles if q.model == "a"} == {1, 2}
+
+
+@pytest.mark.parametrize("mode", ["fp32", "int8-csd"])
+def test_torch_backend_chunked_with_several_inputs(cuda, mode):
+    """Three inputs: the hoisted (B*T, 3) x (3, R) projection changes shape
+    with T, yet chunked states and predictions equal one-shot ones bit
+    for bit on the card."""
+    from repro_torch.serve import ReservoirEngine
+    eng = ReservoirEngine(_esn(mode, cuda, input_dim=3), backend="torch")
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    u = torch.randn((16, 40, 3), generator=gen).to(cuda)
+    x0 = torch.zeros((16, 256), device=cuda)
+    for want_states in (True, False):
+        one, xf = eng.run_segment(u, x0, want_states=want_states)
+        a, carry = eng.run_segment(u[:, :8], x0, want_states=want_states)
+        b, last = eng.run_segment(u[:, 8:], carry, want_states=want_states)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat([a, b], dim=1), one)
+        assert torch.equal(last, xf)

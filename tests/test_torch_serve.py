@@ -175,17 +175,6 @@ def test_transient_fault_retry_is_bit_identical():
         np.testing.assert_array_equal(got[i].preds, want[i].preds)
 
 
-def test_unported_server_options_raise():
-    _ref, port = _params("fp32")
-    eng = ReservoirEngine(port)
-    for kw in ({"registry": object()}, {"admission": object()},
-               {"fault_plan": FaultPlan()}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            AsyncReservoirServer(eng, **kw)
-    with pytest.raises(ValueError, match="model"):
-        eng.submit(SubmitSpec(np.zeros((3, 1), np.float32), model="m"))
-
-
 def test_batcher_direct_chunks_and_slot_reuse():
     _ref, port = _params("fp32")
     eng = ReservoirEngine(port)
