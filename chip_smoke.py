@@ -31,6 +31,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    over 64 steps at batch 16 (vs its twin and the fp32 B1 rollout), the
    cross-family check of tests/test_plan.py at dim 256, and all three at
    PAPER_BASELINE's ragged dim 800;
+8. ``autotune`` (after the timing phases): the plan autotuner on three
+   matrices (LARGE_1024 int8, PAPER_BASELINE fp32, a banded dim-1024 int8
+   matrix with 22 of 64 blocks kept) at batch 8 x 8 steps and batch 16 x
+   32 steps: the card's prior's cold pick, then a measured tuning over
+   both backends (every trial printed; the default among them, the
+   winner no worse than it and on the cold pick's backend), the winner's
+   states == the default schedule's (int8 bit for bit), the trials'
+   cache replayed from a file with no launch, and the cost model refitted
+   over all trials;
 7. ``serve_layer`` (run last): the rest of the serve layer at
    LARGE_1024: (a) the ``"torch"`` backend against the ``"cuda"`` one (B2)
    at batch 16, T = 64 — int8 at LARGE_1024, fp32-dense at PAPER_BASELINE
@@ -324,6 +333,9 @@ class Smoke:
         self.params_1024 = params
 
         eng = ReservoirEngine(params)
+        print(f"backend 'auto' resolved to {eng.backend}: "
+              f"{eng.schedule.describe()}")
+        self._auto_is_timed_schedule(eng, "LARGE_1024 int8")
         print("program:", eng.program.describe())
         rng = np.random.default_rng(11)
         lengths = rng.integers(64, 257, size=24)
@@ -413,7 +425,8 @@ class Smoke:
         exact = all(np.array_equal(res[i].preds, one[i].preds.cpu().numpy())
                     for res in served for i in range(len(specs)))
         self.check(exact, "chunked == one-shot bit for bit (LARGE_1024)")
-        generic = ReservoirEngine(params, specialize=False).submit_many(specs)
+        generic = ReservoirEngine(params, backend="cuda",
+                                  specialize=False).submit_many(specs)
         same = all(torch.equal(generic[i].preds, one[i].preds)
                    for i in range(len(specs)))
         self.check(same, "B1 == B2 bit for bit (LARGE_1024 one-shot)")
@@ -427,8 +440,11 @@ class Smoke:
             (800, 1), generator=gen)).to(self.dev))
         specs800 = [SubmitSpec(signal[: n], uid=i)
                     for i, n in enumerate((40, 64, 100, 77))]
-        a = ReservoirEngine(p800).submit_many(specs800)
-        b = ReservoirEngine(p800, specialize=False).submit_many(specs800)
+        auto800 = ReservoirEngine(p800)
+        self._auto_is_timed_schedule(auto800, "PAPER_BASELINE fp32")
+        a = auto800.submit_many(specs800)
+        b = ReservoirEngine(p800, backend="cuda",
+                            specialize=False).submit_many(specs800)
         d = max(maxdiff(a[i].preds, b[i].preds) for i in a)
         self.check(d <= FP32_TOL, f"PAPER_BASELINE fp32 B2 vs B1 {d:.3g}")
         print(f"PAPER_BASELINE fp32 (dim 800 -> 7 column blocks of 128): "
@@ -443,6 +459,27 @@ class Smoke:
         for k, n in self.launches.items():
             self.check(n > 0, f"{k} launched on the main path")
         self.params_800 = p800
+
+    def _auto_is_timed_schedule(self, eng, tag):
+        """The schedule ``"auto"`` serves the 16-slot pool with is the one
+        phase 5 times B2 at (``SpecializedRollout``'s defaults), and the
+        one the prior picks at the pool's own shape (16 x 32)."""
+        from repro_torch.plan import (ScheduleCache, default_schedule,
+                                      resolve_schedule)
+        mode = "int8" if eng._int8 else "fp32"
+        timed = default_schedule(eng.plan, mode, "cuda")
+        pool = resolve_schedule(eng.plan, mode, batch=16, steps=32,
+                                cache=ScheduleCache(), device=self.dev)
+        knobs = (eng.backend, eng.vmem_budget, eng.crossover,
+                 eng.batch_tile_max)
+        self.check(eng.schedule.key() == timed.key()
+                   == pool.schedule.key()
+                   and knobs == timed.key()[1:],
+                   f"{tag}: 'auto' serves {eng.schedule.describe()}, the "
+                   f"pool's pick is {pool.schedule.describe()}, B2 is "
+                   f"timed at {timed.describe()}")
+        print(f"{tag}: 'auto' serves the schedule B2 is timed at "
+              f"({timed.describe()}), also the pick at the pool's shape")
 
     def baseline_twins(self):
         """B1 and B2 against their twins at phase 4's fp32 shape: dim 800
@@ -480,6 +517,150 @@ class Smoke:
                        f"preds {dp:.3g}")
             print(f"  PAPER_BASELINE fp32 {name} vs twin: states {ds:.3g}, "
                   f"preds {dp:.3g}")
+
+    # -- phase 8 -------------------------------------------------------------
+    def autotune(self):
+        """The plan autotuner on the card, on three matrices (LARGE_1024
+        int8, PAPER_BASELINE fp32, the banded culled dim-1024 int8 one) at
+        the tuner's shape (batch 8, 8 steps) and the served pool's (batch
+        16, 32 steps): (a) the card's prior's cold pick; (b) a measured
+        tuning over both backends, every trial printed, the default among
+        them, the winner no worse than it and on the cold pick's backend;
+        (c) the winner's engine == the default schedule's (int8 bit for
+        bit, fp32 within SERVE_TOL); (d) the saved trials replayed from a
+        fresh cache with no launch; (e) the cost model refitted over all
+        trials (the coefficients the card's prior is set from)."""
+        torch = self.torch
+        from repro_torch.core.costmodel import (ROLLOUT_FEATURES,
+                                                default_rollout_cost_model,
+                                                fit_rollout_cost,
+                                                rollout_cost_features)
+        from repro_torch.kernels.reservoir_rollout.specialized import (
+            specialized_rollout)
+        from repro_torch.plan import (Schedule, ScheduleCache,
+                                      autotune_rollout, candidate_schedules,
+                                      default_schedule, resolve_schedule,
+                                      specialize_summary)
+        from repro_torch.serve import ReservoirEngine
+        prior = default_rollout_cost_model("cuda")
+        path = ROOT / "build" / "autotune_smoke.json"
+        path.parent.mkdir(exist_ok=True)
+        samples = []
+        for tag, params in (("LARGE_1024 int8", self.params_1024),
+                            ("PAPER_BASELINE fp32", self.params_800),
+                            ("banded 1024 int8 (culled)",
+                             self._culled_1024())):
+            plan = params.w.plan()
+            mode = "int8" if params.config.mode.startswith("int8") else "fp32"
+            # every cuda candidate survives the prune when the prior ranks
+            # them first; the default (torch) schedule is always measured
+            top_k = len(candidate_schedules(plan, mode, ("cuda",)))
+            default = default_schedule(plan, mode)
+            tuned_cache, winners = ScheduleCache(), {}
+            for batch, steps in ((8, 8), (16, 32)):
+                shape = f"{tag} b{batch} T{steps}"
+                cold = resolve_schedule(plan, mode, batch=batch, steps=steps,
+                                        cache=ScheduleCache(), model=prior,
+                                        device=self.dev)
+                print(f"  {shape}: cold pick {cold.schedule.describe()} "
+                      f"predicted {cold.predicted_s * 1e6:.1f} us "
+                      f"({cold.n_candidates} candidates)")
+                t0 = time.perf_counter()
+                tuned = autotune_rollout(
+                    plan, mode, batch=batch, steps=steps, params=params,
+                    top_k=top_k, reps=3, model=prior, cache=tuned_cache,
+                    device=self.dev)
+                print(f"  {shape}: {len(tuned.trials)} trials in "
+                      f"{time.perf_counter() - t0:.2f} s on {self.card} "
+                      "(schedule: predicted / measured us, best of 3):")
+                for s, p, m in sorted(tuned.trials, key=lambda t: t[2]):
+                    sched = Schedule.from_dict(s)
+                    print(f"    {sched.describe()}: {p * 1e6:.1f} / "
+                          f"{m * 1e6:.1f}")
+                    summary = specialize_summary(
+                        plan, mode, vmem_budget=sched.vmem_budget,
+                        crossover=sched.crossover,
+                        batch_tile_max=sched.batch_tile_max)
+                    samples.append((sched.backend, rollout_cost_features(
+                        summary, plan.block, batch, steps), m))
+                keys = [Schedule.from_dict(s).key() for s, _p, _m in
+                        tuned.trials]
+                print(f"  {shape}: winner {tuned.schedule.describe()} "
+                      f"{tuned.measured_s * 1e6:.1f} us, default "
+                      f"{default.describe()} "
+                      f"{tuned.default_measured_s * 1e6:.1f} us, "
+                      f"{tuned.default_measured_s / tuned.measured_s:.1f}x")
+                self.check(default.key() in keys,
+                           f"{shape}: default schedule among the trials")
+                self.check(tuned.measured_s <= tuned.default_measured_s,
+                           f"{shape}: winner slower than the default")
+                self.check(cold.schedule.backend == tuned.schedule.backend,
+                           f"{shape}: cold pick {cold.schedule.backend} != "
+                           f"measured winner {tuned.schedule.backend}")
+                self._tuned_equals_default(params, tuned, default, shape,
+                                           batch, steps)
+                winners[(batch, steps)] = tuned
+            # (d) the trials' cache saved, loaded fresh, resolved again
+            tuned_cache.save(path)
+            fresh = ScheduleCache()
+            loaded = fresh.load(path)
+            for (batch, steps), tuned in winners.items():
+                specialized_rollout.launches = 0
+                replay = resolve_schedule(plan, mode, batch=batch,
+                                          steps=steps, cache=fresh,
+                                          device=self.dev)
+                torch.cuda.synchronize()
+                ok = (replay.source == "cache"
+                      and replay.schedule == tuned.schedule
+                      and replay.measured_s == tuned.measured_s
+                      and specialized_rollout.launches == 0)
+                self.check(ok, f"{tag} b{batch} T{steps}: cache replay "
+                           f"source {replay.source}, "
+                           f"{specialized_rollout.launches} launches")
+            print(f"  {tag}: {loaded} entries replayed from {path.name} "
+                  f"with source 'cache' and no B2 launch: "
+                  f"{fresh.stats()}")
+        # (e) the refit over every trial of this phase
+        fit = fit_rollout_cost(samples, platform="cuda")
+        print(f"  refit over {len(samples)} trials "
+              f"({sum(b == 'cuda' for b, _f, _m in samples)} cuda) on "
+              f"{self.card}; features {list(ROLLOUT_FEATURES)} + intercept:")
+        for bk, c in fit.coeffs.items():
+            errs = {name: float(np.median([
+                abs(model.predict(bk, f) - m) / m
+                for b, f, m in samples if b == bk]))
+                for name, model in (("refit", fit), ("prior", prior))}
+            print(f"    {bk}: [{', '.join(f'{x:.4g}' for x in c)}] "
+                  f"(median |refit - measured| / measured "
+                  f"{errs['refit']:.3f}, the prior's {errs['prior']:.3f})")
+
+    def _tuned_equals_default(self, params, tuned, default, shape, batch,
+                              steps):
+        """(c) The winner's engine against the default schedule's on the
+        same inputs: int8 states bit for bit, fp32 within SERVE_TOL; a
+        cuda winner makes one B2 launch per call."""
+        torch = self.torch
+        from repro_torch.kernels.reservoir_rollout.specialized import (
+            specialized_rollout)
+        from repro_torch.serve import ReservoirEngine
+        gen = torch.Generator(device="cpu").manual_seed(batch + steps)
+        u = torch.randn((batch, steps, params.config.input_dim),
+                        generator=gen).to(self.dev)
+        win = ReservoirEngine(params, schedule=tuned)
+        base = ReservoirEngine(params, schedule=default)
+        specialized_rollout.launches = 0
+        got = win.rollout(u)
+        made = specialized_rollout.launches
+        want = base.rollout(u)
+        torch.cuda.synchronize()
+        d = maxdiff(got, want)
+        tol = 0.0 if params.config.mode.startswith("int8") else SERVE_TOL
+        self.check(d <= tol, f"{shape}: winner vs default states {d:.3g}")
+        self.check(made == (1 if win.backend == "cuda" else 0),
+                   f"{shape}: winner made {made} B2 launches")
+        print(f"  {shape}: winner ({win.backend}) vs default "
+              f"({base.backend}) states max |diff| {d:.3g}, "
+              f"{made} B2 launch")
 
     # -- phase 7 -------------------------------------------------------------
     def serve_layer(self):
@@ -531,7 +712,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.serve import ReservoirEngine
         t = ReservoirEngine(params, backend="torch", **kw)
-        c = ReservoirEngine(params, **kw)
+        c = ReservoirEngine(params, backend="cuda", **kw)
         cfg = params.config
         gen = torch.Generator(device="cpu").manual_seed(seed)
         u = torch.randn((16, 64, cfg.input_dim), generator=gen).to(self.dev)
@@ -579,27 +760,32 @@ class Smoke:
                      f"; {dev_us:.3f} us device time (profiler)"))
         return times, calls["torch"]
 
+    def _culled_1024(self):
+        """A block-sparse dim-1024 matrix (blocks kept only on the three
+        central block diagonals, 22/64) with LARGE_1024's input and
+        readout weights: the culled int8 schedule.  Made once."""
+        if getattr(self, "params_culled", None) is None:
+            from repro_torch.configs.esn_paper import LARGE_1024
+            from repro_torch.core.esn import ESNParams
+            from repro_torch.core.sparse import (FixedMatrix,
+                                                 random_sparse_matrix)
+            rng = np.random.default_rng(0)
+            w = random_sparse_matrix(1024, 1024, 0.95, rng) * 0.05
+            blk = np.arange(1024) // 128
+            w[np.abs(blk[:, None] - blk[None, :]) > 1] = 0.0
+            fm = FixedMatrix.compile(w, weight_bits=8, mode="csd", block=128,
+                                     rng=rng)
+            p = self.params_1024
+            self.params_culled = ESNParams(w=fm, w_in=p.w_in, w_out=p.w_out,
+                                           config=LARGE_1024)
+        return self.params_culled
+
     def _torch_backend(self):
-        from repro_torch.configs.esn_paper import LARGE_1024
-        from repro_torch.core.esn import ESNParams
-        from repro_torch.core.sparse import (FixedMatrix,
-                                             random_sparse_matrix)
-        # a block-sparse dim-1024 matrix (blocks kept only on the three
-        # central block diagonals, 22/64): the culled int8 schedule
-        rng = np.random.default_rng(0)
-        w = random_sparse_matrix(1024, 1024, 0.95, rng) * 0.05
-        blk = np.arange(1024) // 128
-        w[np.abs(blk[:, None] - blk[None, :]) > 1] = 0.0
-        fm = FixedMatrix.compile(w, weight_bits=8, mode="csd", block=128,
-                                 rng=rng)
-        p = self.params_1024
-        culled = ESNParams(w=fm, w_in=p.w_in, w_out=p.w_out,
-                           config=LARGE_1024)
         self.backend_times, self._torch_calls = {}, {}
         for tag, params, seed in (
                 ("LARGE_1024 int8", self.params_1024, 41),
                 ("PAPER_BASELINE fp32", self.params_800, 43),
-                ("banded 1024 int8 (culled)", culled, 47)):
+                ("banded 1024 int8 (culled)", self._culled_1024(), 47)):
             self.backend_times[tag], self._torch_calls[tag] = \
                 self._backend_pair(params, tag, seed)
 
@@ -773,6 +959,7 @@ class Smoke:
             rollout_grid, rollout_readout)
         from repro_torch.kernels.reservoir_rollout.specialized import (
             SpecializedRollout, specialized_rollout, specialized_rollout_plain)
+        from repro_torch.plan import default_schedule
         params = self.params_1024
         cfg = params.config
         plan = params.w.plan()
@@ -791,6 +978,14 @@ class Smoke:
                 w_out=params.w_out, device=self.dev), reservoir_rollout_plain,
                 reservoir_rollout),
         }
+        # B2 is timed at the schedule phase 3's "auto" engine serves
+        prog = ops["specialized_rollout"][0].program
+        served = default_schedule(plan, "int8", "cuda")
+        self.check((prog.vmem_budget, prog.crossover, prog.batch_tile_max)
+                   == (served.vmem_budget, served.crossover,
+                       served.batch_tile_max),
+                   f"B2 timed at {prog.crossover=} {prog.batch_tile_max=}, "
+                   f"served at {served.describe()}")
 
         timed = self.timed
         dense = params.w.dense_f32(device=self.dev)
@@ -1369,7 +1564,7 @@ def main() -> int:
     # launches must not come before the kernels' timing phases
     for phase in (smoke.build, smoke.twins, smoke.main_path,
                   smoke.baseline_twins, smoke.fixed_matrix, smoke.times,
-                  smoke.fixed_times, smoke.serve_layer):
+                  smoke.fixed_times, smoke.autotune, smoke.serve_layer):
         t0 = time.perf_counter()
         print(f"== {phase.__name__}")
         try:

@@ -12,9 +12,9 @@ The paper's headline cost model is deliberately simple:
 
 Everything here is scalar math so the benchmark harness can sweep
 thousands of design points instantly.  Calibrated constants are marked
-``# calibrated:`` with the paper anchor that pins them.  (The rollout
-schedule cost model that prices autotuner candidates arrives with the
-autotuner port.)
+``# calibrated:`` with the paper anchor that pins them.  The second half
+is the rollout schedule cost model the plan autotuner
+(:mod:`repro_torch.plan.autotune`) prices its candidates with.
 """
 
 from __future__ import annotations
@@ -22,9 +22,13 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
+
 __all__ = [
     "XCVU13P",
     "FPGADesignPoint",
+    "ROLLOUT_FEATURES",
+    "RolloutCostModel",
     "expected_ones",
     "luts_for_ones",
     "ffs_for_ones",
@@ -33,6 +37,9 @@ __all__ = [
     "latency_cycles",
     "design_point",
     "tpu_decode_bytes",
+    "rollout_cost_features",
+    "default_rollout_cost_model",
+    "fit_rollout_cost",
 ]
 
 # --- Xilinx XCVU13P (paper Sec. VI) ---------------------------------------
@@ -178,6 +185,182 @@ def design_point(
         power_w=power_w(ones, f),
         cycles=latency_cycles(input_bits, weight_bits, rows),
     )
+
+
+# --- Rollout schedule cost model (plan autotuning) -------------------------
+# The same "simple and extensible" philosophy as the FPGA model above,
+# pointed at the rollout: a specialized RolloutProgram's runtime is a linear
+# combination of the work terms its schedule implies.  The autotuner
+# (repro_torch.plan.autotune) prices every candidate schedule with these
+# coefficients, prunes, then measures the survivors — and
+# ``fit_rollout_cost`` closes the loop by refitting the coefficients from
+# the measured rows, so the prior below only has to get the *ordering*
+# roughly right, never the absolute seconds.
+
+ROLLOUT_FEATURES = (
+    "matmul_macs",     # folded-tile MAC count across the whole rollout
+    "shiftadd_ops",    # unrolled digit adds across the whole rollout
+    "stream_bytes",    # weight bytes moved (once if resident, per step if
+                       # pipelined — the regime axis of the search)
+    "band_steps",      # band iterations (per-band overhead)
+    "tile_steps",      # batch-tile iterations (per-tile overhead)
+    "steps",           # recurrence steps (per-step dispatch overhead)
+)
+
+
+def rollout_cost_features(summary: dict, block: int, batch: int,
+                          steps: int = 1) -> dict:
+    """Work terms of one specialized schedule over a ``(batch, steps)``
+    rollout, computed from
+    :func:`~repro_torch.plan.specialize.specialize_summary` counts only —
+    no tile data is ever materialized to price a candidate.
+    """
+    batch_tile_max = summary.get("batch_tile_max", 16)
+    n_tiles = max(1, -(-batch // batch_tile_max))
+    b_tile = -(-batch // n_tiles)
+    b_pad = b_tile * n_tiles
+    itemsize = 4 if summary["mode"] == "fp32" else 1
+    tile_bytes = block * block * itemsize
+    payload = summary["n_matmul_terms"] * tile_bytes
+    if summary["regime"] == "resident":
+        stream = payload                       # staged once
+    else:
+        stream = payload * steps               # re-streamed every step
+    return {
+        "matmul_macs": summary["n_matmul_terms"] * block * block
+        * b_pad * steps,
+        "shiftadd_ops": summary["shiftadd_digits"] * b_pad * steps,
+        "stream_bytes": stream,
+        "band_steps": summary["n_bands"] * steps,
+        "tile_steps": summary["n_bands"] * n_tiles * steps,
+        "steps": steps,
+    }
+
+
+@dataclasses.dataclass
+class RolloutCostModel:
+    """Per-backend linear model over :data:`ROLLOUT_FEATURES` + intercept.
+
+    ``coeffs[backend]`` is an ndarray of ``len(ROLLOUT_FEATURES) + 1``
+    seconds-per-unit weights (intercept last).  Coefficients come from
+    :func:`default_rollout_cost_model` (platform prior) or
+    :func:`fit_rollout_cost` (calibrated against measured rows).
+    """
+
+    coeffs: dict
+    platform: str = "cpu"
+
+    def predict(self, backend: str, features: dict) -> float:
+        c = self.coeffs.get(backend)
+        if c is None:
+            raise KeyError(f"no coefficients for backend {backend!r} "
+                           f"(have {sorted(self.coeffs)})")
+        v = np.array([features[k] for k in ROLLOUT_FEATURES] + [1.0])
+        return float(v @ np.asarray(c))
+
+    def as_dict(self) -> dict:
+        return {"platform": self.platform,
+                "features": list(ROLLOUT_FEATURES) + ["intercept"],
+                "coeffs": {bk: [float(x) for x in c]
+                           for bk, c in self.coeffs.items()}}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "RolloutCostModel":
+        return cls(coeffs={bk: np.asarray(c, np.float64)
+                           for bk, c in d["coeffs"].items()},
+                   platform=d.get("platform", "cpu"))
+
+
+# Platform priors, keyed by torch device type; intercept last.
+_PRIORS = {
+    # The JAX package's CPU prior with its backends renamed (xla -> torch,
+    # pallas -> cuda).  Off the card the cuda backend runs the kernels'
+    # plain twins (the port's interpret mode), so its per-term
+    # coefficients carry a penalty large enough that it never survives
+    # pruning there.
+    "cpu": {
+        #        macs    shiftadd stream   band     tile     step  icept
+        "torch": [2e-11, 2e-9, 2e-11, 2e-6, 1e-6, 2e-6, 1e-4],
+        "cuda": [2e-9, 2e-7, 2e-9, 1e-3, 1e-3, 1e-2, 1e-2],
+    },
+    # H100 prior: fit_rollout_cost over the 50 measured trials (44 cuda,
+    # 6 torch; host clock around a synchronised rollout, best of 3) of the
+    # first tuning run of chip_smoke.py's autotune phase on an NVIDIA H100
+    # 80GB HBM3 with a 700.00 W power limit, which PERF.md names as this
+    # prior's source.  Matrices: LARGE_1024 int8, PAPER_BASELINE fp32 and
+    # a banded dim-1024 int8 matrix with 22 of 64 blocks kept, each at
+    # batch 8 x 8 steps and batch 16 x 32 steps.  That run timed crossovers
+    # that build one launch under several names; a later run with one
+    # trial per launch refit cuda coefficients no closer to its own trials
+    # than this prior (median relative error 0.576 against 0.572), so this
+    # prior stays.  Its torch refit came closer (16.8 against 23.7), but no
+    # choice turns on it: the backend gap is 3-385x.  No torch trial had
+    # shift-add digits, so the torch shiftadd weight is the fit's starting
+    # guess.  Crossovers that build other launches (128 and 256 against
+    # 64) measured within the host clock's spread, so the cold pick on the
+    # card leaves the crossover at its default (plan.autotune._cold_pick).
+    "cuda": {
+        # the per-step PyTorch loop: host-bound, paid per step (the fit
+        # clipped macs to 0: the culled schedule has fewer MACs than the
+        # dense one and takes longer)
+        "torch": [0.0, 1e-07, 0.0, 0.001124, 0.001134, 0.001324, 0.004599],
+        # one B2 launch per call: per-step and per-tile costs; the
+        # matrix's size enters through stream_bytes (macs clipped to 0)
+        "cuda": [0.0, 1.962e-12, 1.004e-10, 1.809e-06, 2.97e-06,
+                 4.809e-06, 0.0],
+    },
+}
+
+
+def default_rollout_cost_model(platform: str = "cpu") -> RolloutCostModel:
+    """Platform prior for the rollout cost model: ``"cpu"`` or ``"cuda"``
+    (a torch device type).
+
+    What the autotuner's pruning needs of a prior is only that the
+    *relative* cost of the backends and schedules is right;
+    :func:`fit_rollout_cost` calibrates the seconds.
+    """
+    if platform not in _PRIORS:
+        raise ValueError(f"no rollout cost prior for platform {platform!r} "
+                         f"(have {sorted(_PRIORS)})")
+    return RolloutCostModel(
+        coeffs={bk: np.asarray(c, np.float64)
+                for bk, c in _PRIORS[platform].items()},
+        platform=platform)
+
+
+def fit_rollout_cost(samples, platform: str = "cpu") -> RolloutCostModel:
+    """Calibrate the cost model from measured rows.
+
+    ``samples``: iterable of ``(backend, features_dict, measured_seconds)``
+    — the autotuner's measured trials.  Per backend, a ridge regression
+    regularized toward the platform prior (a tuning run yields few rows
+    against 7 unknowns, so the prior anchors the underdetermined
+    directions), with coefficients clipped nonnegative — a negative
+    seconds-per-op weight is always noise.  Backends with no samples keep
+    their prior.
+    """
+    base = default_rollout_cost_model(platform)
+    coeffs = dict(base.coeffs)
+    by_backend: dict = {}
+    for backend, feats, seconds in samples:
+        by_backend.setdefault(backend, []).append((feats, float(seconds)))
+    n_coef = len(ROLLOUT_FEATURES) + 1
+    for backend, rows in by_backend.items():
+        a = np.array([[f[k] for k in ROLLOUT_FEATURES] + [1.0]
+                      for f, _s in rows], np.float64)
+        y = np.array([s for _f, s in rows], np.float64)
+        scale = np.abs(a).max(axis=0)
+        scale[scale == 0] = 1.0
+        an = a / scale
+        c0 = np.asarray(base.coeffs.get(backend,
+                                        np.zeros(n_coef))) * scale
+        lam = 1e-2
+        lhs = an.T @ an + lam * np.eye(n_coef)
+        rhs = an.T @ y + lam * c0
+        c = np.linalg.solve(lhs, rhs) / scale
+        coeffs[backend] = np.maximum(c, 0.0)
+    return RolloutCostModel(coeffs=coeffs, platform=platform)
 
 
 # --- what the technique buys on a memory-bound gemv -------------------------

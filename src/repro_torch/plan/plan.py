@@ -445,7 +445,10 @@ class ExecutionPlan:
     def describe(self, input_bits: int = 8,
                  vmem_budget: int | None = DEFAULT_VMEM_BUDGET) -> str:
         """Human-readable compile summary: structure kept/culled + FPGA
-        cost + the specialized programs' regimes."""
+        cost + the specialized programs' regimes, and one
+        ``autotuned[...]`` line per tuning decision pinned to this plan
+        (the chosen backend / band budget / crossover / batch tile and
+        the predicted vs measured rollout cost behind it)."""
         s = self.stats
         dp = self.fpga_cost(input_bits)
         n_bands, band_bytes = self.band_summary("fp32",
@@ -468,6 +471,10 @@ class ExecutionPlan:
             f"  Eq.5 latency: {dp.cycles} cycles = {dp.latency_ns:.1f} ns  "
             f"power = {dp.power_w:.1f} W",
         ]
+        for (mode, bucket, hw), tuned in sorted(
+                getattr(self, "_tuned", {}).items(), key=repr):
+            lines.append(f"  autotuned[{mode} b<={bucket} {hw}]: "
+                         + tuned.describe())
         return "\n".join(lines)
 
 

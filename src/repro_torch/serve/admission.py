@@ -25,12 +25,9 @@ counts it in ``ServeStats.rejected`` / ``.shed`` and the
 ``requests_rejected_total`` / ``requests_shed_total`` obs metrics.
 
 The per-chunk cost estimate (:func:`estimate_chunk_seconds`) prefers the
-server's fixed ``chunk_time``, then the measured EWMA of its chunks.  The
-JAX package's third rung, its plan autotuner's calibrated
-``predict_cost``, has no counterpart here until the autotuner is ported,
-so before the first chunk runs the estimate takes that package's own
-fallback, 1e-3 s per chunk.  Decisions therefore agree with the JAX
-package's whenever ``chunk_time`` is set or a chunk has run.
+server's fixed ``chunk_time``, then the measured EWMA of its chunks, then
+the plan autotuner's calibrated cost model for the pool shape, so
+admission is cost-aware from the very first submit.
 """
 
 from __future__ import annotations
@@ -73,17 +70,36 @@ class AdmissionPolicy:
 def estimate_chunk_seconds(server) -> float:
     """Best available per-chunk cost estimate for ``server``'s pool.
 
-    Preference order: the fixed virtual-clock ``chunk_time`` when set (it
-    *is* the chunk cost by definition), the measured per-call EWMA once
-    chunks have run, else a small constant (1e-3 s; see the module
-    docstring) so policies stay functional before anything is measured.
+    Preference order: the fixed virtual-clock ``chunk_time`` when set
+    (it *is* the chunk cost by definition), the measured per-call EWMA
+    once chunks have run, then the calibrated cost model's analytic
+    prediction for the pool shape (``n_slots`` x ``chunk_steps`` under
+    the engine's resolved schedule, priced for the engine's device) — so
+    admission decisions are cost-aware from the very first submit, before
+    anything has been measured.
     """
     if server.chunk_time is not None:
         return float(server.chunk_time)
     st = server.stats
     if st.chunks and st.latency_ewma_s > 0:
         return float(st.latency_ewma_s)
-    return 1e-3
+    eng = server.batcher.engine
+    try:
+        from repro_torch.plan.autotune import Schedule, predict_cost
+        sched = eng.schedule
+        if sched is None:
+            sched = Schedule(
+                "int8" if eng.config.mode.startswith("int8") else "fp32",
+                eng.backend, eng.vmem_budget, eng.crossover,
+                eng.batch_tile_max)
+        est = predict_cost(eng.plan, sched, server.batcher.n_slots,
+                           server.batcher.chunk_steps, device=eng.device)
+        return max(float(est), 1e-6)
+    except (KeyError, TypeError, ValueError):
+        # the cost model cannot price this engine (no coefficients for
+        # its backend, no batch tile, an infeasible budget): fall back to
+        # a small constant so policies stay functional
+        return 1e-3
 
 
 def estimate_queue_delay(server) -> float:

@@ -13,6 +13,27 @@ import dataclasses
 from typing import Any
 
 
+class _Unset:
+    """Sentinel distinguishing "kwarg not passed" from an explicit value
+    (``None`` is a legal ``vmem_budget``: forced resident)."""
+
+    _instance = None
+
+    def __new__(cls):
+        if cls._instance is None:
+            cls._instance = super().__new__(cls)
+        return cls._instance
+
+    def __repr__(self) -> str:
+        return "<unset>"
+
+    def __bool__(self) -> bool:
+        return False
+
+
+_UNSET = _Unset()
+
+
 @dataclasses.dataclass(frozen=True)
 class SubmitSpec:
     """One serving request, identical across every entry point.

@@ -19,8 +19,10 @@ and fronts two implementations:
   (dispatched on the plan's block density), int8 through exact integer
   products, the readout applied after the loop.
 
-``backend="auto"`` resolves to ``cuda`` (the autotuner that chooses between
-the two is not ported yet).  With a trained readout the engine serves
+``backend="auto"`` resolves through the plan autotuner
+(:mod:`repro_torch.plan.autotune`): a persisted tuning cache replays the
+measured winner, a cold cache takes the cost model's pick for the
+engine's device.  With a trained readout the engine serves
 *predictions*, so the state trajectory never leaves the engine on the
 prediction path.  The request/response surface is the
 :class:`~repro_torch.serve.api.SubmitSpec` ->
@@ -48,8 +50,9 @@ from repro_torch.kernels.reservoir_rollout.specialized import \
     SpecializedRollout
 from repro_torch.plan import (DEFAULT_BATCH_TILE, DEFAULT_VMEM_BUDGET,
                               plan_for, specialize_rollout)
+from repro_torch.plan.autotune import resolve_backend, resolve_schedule
 from repro_torch.plan.specialize import int8_recur_reference
-from repro_torch.serve.api import (RolloutResult, SubmitSpec,
+from repro_torch.serve.api import (_UNSET, RolloutResult, SubmitSpec,
                                    lifecycle_timings)
 from repro_torch.serve.batching import (MicroBatch, PaddingBucketer,
                                         RolloutRequest)
@@ -98,19 +101,25 @@ class ReservoirEngine:
     """Batched rollout (and readout) for one frozen ESN on one device.
 
     ``backend`` is ``"cuda"`` (the rollout kernels), ``"torch"`` (the
-    per-step PyTorch loop) or ``"auto"`` (``"cuda"``).  ``device``
-    defaults to the params' device.  ``tenant`` is the registry model name
-    the engine serves (None outside a registry); it threads through to the
-    plan-cache tenant counters.
+    per-step PyTorch loop) or ``"auto"``: with ``specialize=True`` the
+    plan autotuner's schedule for the engine's device, without it
+    ``"cuda"`` on a CUDA device and ``"torch"`` on the CPU.  ``schedule``
+    (a :class:`~repro_torch.plan.autotune.Schedule` or
+    :class:`~repro_torch.plan.autotune.TunedSchedule`) bypasses
+    resolution; a schedule fills only the knobs the caller left unset.
+    ``device`` defaults to the params' device.  ``tenant`` is the
+    registry model name the engine serves (None outside a registry); it
+    threads through to the plan-cache tenant counters.
     """
 
     def __init__(self, params: ESNParams, *, backend: str = "auto",
                  stats: ServeStats | None = None,
                  dense_dispatch_density: float = DENSE_DISPATCH_DENSITY,
-                 vmem_budget: int | None = DEFAULT_VMEM_BUDGET,
+                 vmem_budget: int | None = _UNSET,
                  specialize: bool = True, tenant: str | None = None,
                  crossover: int | None = None,
-                 batch_tile_max: int | None = None, device=None):
+                 batch_tile_max: int | None = None, schedule=None,
+                 device=None):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"not {backend!r}")
@@ -123,8 +132,31 @@ class ReservoirEngine:
         self.plan = plan_for(params.w, tenant=tenant)
         self.specialize = specialize
         self._int8 = self.config.mode.startswith("int8")
-        self.backend = "cuda" if backend == "auto" else backend
-        self.vmem_budget = vmem_budget
+        # backend="auto" resolves through the plan autotuner: a persisted
+        # tuning cache replays the measured winner, a cold cache falls
+        # back to the cost model's pick for this device.  The schedule
+        # fills every knob the caller left unset; explicit kwargs always
+        # win.  ``schedule`` bypasses resolution entirely.
+        self.requested_backend = backend
+        if schedule is None and backend == "auto" and specialize:
+            schedule = resolve_schedule(
+                self.plan, "int8" if self._int8 else "fp32",
+                device=self.device)
+        sched = getattr(schedule, "schedule", schedule)
+        self.schedule = sched
+        if sched is not None:
+            self.backend = sched.backend if backend == "auto" else backend
+            if vmem_budget is _UNSET:
+                vmem_budget = sched.vmem_budget
+            if crossover is None:
+                crossover = sched.crossover
+            if batch_tile_max is None:
+                batch_tile_max = sched.batch_tile_max
+        else:
+            self.backend = (_unspecialized_auto(self.device)
+                            if backend == "auto" else backend)
+        self.vmem_budget = DEFAULT_VMEM_BUDGET if vmem_budget is _UNSET \
+            else vmem_budget
         self.crossover = crossover
         self.batch_tile_max = batch_tile_max
         # readout captured at construction; engine_for invalidates the
@@ -144,7 +176,8 @@ class ReservoirEngine:
         # must set up once, and a prewarm must cover what serving runs)
         self._traces: collections.Counter = collections.Counter()
         obs.event("engine_build", backend=self.backend, tenant=tenant,
-                  device=str(self.device), specialize=specialize)
+                  device=str(self.device), specialize=specialize,
+                  schedule=str(self.schedule))
         obs.inc("engine_builds_total", backend=self.backend)
         if self.backend == "cuda":
             kw = {}
@@ -156,7 +189,7 @@ class ReservoirEngine:
                 self.plan, params.w_in, leak=self.config.leak,
                 mode="int8" if self._int8 else "fp32",
                 state_bits=self.config.state_bits, w_out=self._w_out,
-                vmem_budget=vmem_budget, device=self.device, **kw)
+                vmem_budget=self.vmem_budget, device=self.device, **kw)
         else:
             self._build_torch()
 
@@ -518,6 +551,13 @@ class ReservoirEngine:
         return preds[0] if single else preds
 
 
+def _unspecialized_auto(device: torch.device) -> str:
+    """What ``"auto"`` means without a schedule space (``specialize=
+    False``): the kernels on a CUDA device, the PyTorch loop on the CPU
+    (the JAX package's ``"xla"`` there)."""
+    return "cuda" if device.type == "cuda" else "torch"
+
+
 def _host_array(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
@@ -624,14 +664,23 @@ def engine_for(params: ESNParams, backend: str = "auto", *, device=None,
     stay resident (least recently used evicted first);
     ``engine_cache_stats()`` exposes the hit/miss/eviction counters,
     globally and per tenant.  ``backend="auto"`` keys the cache on the
-    backend it resolves to (``cuda``), the same resolution the
-    constructor runs.
+    backend the plan autotuner resolves for these params on this device —
+    the same resolution the constructor runs, so the key and the built
+    engine's backend always agree.
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, "
                          f"not {backend!r}")
-    bk = "cuda" if backend == "auto" else backend
     dev = resolve_device(params.device if device is None else device)
+    if backend != "auto":
+        bk = backend
+    elif kwargs.get("schedule") is not None:
+        sched = kwargs["schedule"]
+        bk = getattr(sched, "schedule", sched).backend
+    elif not kwargs.get("specialize", True):
+        bk = _unspecialized_auto(dev)   # no schedule space to tune
+    else:
+        bk = resolve_backend(params, backend, device=dev)
     if tenant is None:
         key = (id(params), bk, str(dev))
         ent = _engine_cache.get(key)

@@ -6,10 +6,10 @@ runs the kernels' twins on the CPU) on the same seeded inputs, with the
 weights carried by ``params_from_numpy``.  Rejection and shed decisions,
 their reasons, retry-after hints and counters must be identical; outputs
 of admitted requests agree with the reference within ``TOL`` and, inside
-the port, equal an unpoliced run bit for bit.  Every server here runs a
-fixed ``chunk_time`` (the virtual clock), where the reference's decisions
-do not depend on its autotuner's cost model (the port has none yet, see
-``repro_torch.serve.admission``).
+the port, equal an unpoliced run bit for bit.  Most servers here run a
+fixed ``chunk_time`` (the virtual clock); without one, before any chunk
+has run, both packages price a chunk with their autotuner's cost model,
+and the estimates (``RTOL``) and the decisions built on them agree.
 """
 
 import warnings
@@ -31,6 +31,7 @@ from repro_torch.serve import (AsyncReservoirServer, BoundedQueuePolicy,
 from repro_torch.serve import admission as tadm
 
 TOL = 1e-5
+RTOL = 1e-12
 BACKENDS = ["torch", "cuda"]
 _PARAMS = {}
 
@@ -128,17 +129,69 @@ def test_estimators_match_reference(queued):
 
 
 def test_chunk_estimate_before_any_measurement():
-    """No chunk_time and nothing measured: the port takes the reference's
-    own fallback constant (its cost-model rung is not ported); once a
-    chunk ran, the measured EWMA decides, as in the reference."""
-    _ref, port = _params()
-    # the server shares the engine's stats, where the per-call EWMA lands
-    srv = AsyncReservoirServer(ReservoirEngine(port, backend="torch"),
-                               n_slots=2, chunk_steps=8)
-    assert tadm.estimate_chunk_seconds(srv) == 1e-3
+    """No chunk_time and nothing measured: the port prices the pool's
+    chunk with its cost model as the reference does (the "auto" engines'
+    tuned schedules; an explicit backend leaves no batch tile to price,
+    and both packages take the 1e-3 fallback); once a chunk ran, the
+    measured EWMA decides, as in the reference."""
+    ref, port = _params()
+    for j_backend, t_backend in (("auto", "auto"), ("xla", "torch")):
+        j = jserve.AsyncReservoirServer(
+            jserve.ReservoirEngine(ref, backend=j_backend),
+            n_slots=2, chunk_steps=8)
+        # the server shares the engine's stats, where the EWMA lands
+        srv = AsyncReservoirServer(ReservoirEngine(port, backend=t_backend),
+                                   n_slots=2, chunk_steps=8)
+        want = jadm.estimate_chunk_seconds(j)
+        assert tadm.estimate_chunk_seconds(srv) == pytest.approx(
+            want, rel=RTOL, abs=0.0)
+        if t_backend == "auto":
+            assert srv.batcher.engine.backend == "torch"
+            assert want != 1e-3
+        else:
+            assert want == 1e-3
     srv.submit(SubmitSpec(np.ones((8, 1), np.float32)))
     srv.run()
     assert tadm.estimate_chunk_seconds(srv) == srv.stats.latency_ewma_s > 0
+
+
+@pytest.mark.parametrize("n_slots,chunk_steps", [(1, 4), (2, 8), (4, 32)])
+def test_deadline_shed_on_the_cost_model_like_reference(n_slots,
+                                                        chunk_steps):
+    """No chunk_time: the shed decisions and retry hints of "auto"
+    engines rest on the cost model's chunk estimate, in both packages.
+    Deadlines straddle the estimated delay, so some requests are shed
+    and some queue."""
+    ref, port = _params()
+    j = jserve.AsyncReservoirServer(
+        jserve.ReservoirEngine(ref), n_slots=n_slots,
+        chunk_steps=chunk_steps, stats=jserve.ServeStats(),
+        admission=jadm.DeadlineShedPolicy())
+    t = AsyncReservoirServer(
+        ReservoirEngine(port), n_slots=n_slots, chunk_steps=chunk_steps,
+        stats=ServeStats(), admission=DeadlineShedPolicy())
+    chunk = jadm.estimate_chunk_seconds(j)
+    assert tadm.estimate_chunk_seconds(t) == pytest.approx(
+        chunk, rel=RTOL, abs=0.0)
+    verdicts = {}
+    for name, srv, spec_cls in (("j", j, jserve.SubmitSpec),
+                                ("t", t, SubmitSpec)):
+        out = [srv.submit(spec_cls(np.ones((24, 1), np.float32),
+                                   uid=f"long{i}"), arrival_time=0.0)
+               for i in range(n_slots + 1)]
+        for k, factor in enumerate((0.5, 1.5, 2.5, 4.0, 40.0)):
+            out.append(srv.submit(spec_cls(
+                np.ones((4, 1), np.float32), uid=f"d{k}",
+                deadline=factor * chunk), arrival_time=0.0))
+        verdicts[name] = _verdicts(out)
+    jv, tv = verdicts["j"], verdicts["t"]
+    assert [v is None for v in tv] == [v is None for v in jv]
+    assert any(v is not None for v in tv) and tv[-1] is None
+    for a, b in zip(tv, jv):
+        if a is not None:
+            assert a[0] == b[0] == "deadline_unmeetable"
+            assert a[1] == pytest.approx(b[1], rel=RTOL, abs=0.0)
+    assert _counters(t.stats) == _counters(j.stats)
 
 
 @pytest.mark.parametrize("backend", BACKENDS)

@@ -33,6 +33,7 @@ from repro.plan.specialize import int8_recur_reference as j_recur
 from repro.serve import ReservoirEngine as JEngine
 from repro.serve import SubmitSpec as JSpec
 from repro_torch.core import esn as tesn
+from repro_torch.plan import resolve_backend
 from repro_torch.plan.specialize import int8_recur_reference
 from repro_torch.serve import (ReservoirEngine, SubmitSpec,
                                engine_cache_clear, engine_for)
@@ -195,9 +196,12 @@ def test_backend_names_and_engine_cache():
     assert BACKENDS == ("auto", "torch", "cuda")
     t, c = engine_for(port, "torch"), engine_for(port, "cuda")
     assert (t.backend, c.backend) == ("torch", "cuda")
-    # "auto" resolves to "cuda", and the cache keys the resolved backend
-    assert engine_for(port, "torch") is t and engine_for(port) is c
-    # only the cuda backend builds the kernel op; auto resolves to it
+    # "auto" resolves through the autotuner ("torch" on the CPU, the
+    # reference's "xla"), and the cache keys the resolved backend
+    assert resolve_backend(port) == "torch"
+    assert engine_for(port, "torch") is t and engine_for(port) is t
+    assert engine_for(port, "cuda") is c
+    # only the cuda backend builds the kernel op
     assert not hasattr(t, "_fused") and hasattr(c, "_fused")
     with pytest.raises(ValueError, match="backend"):
         ReservoirEngine(port, backend="xla")

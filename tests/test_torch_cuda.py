@@ -593,3 +593,79 @@ def test_torch_backend_chunked_with_several_inputs(cuda, mode):
         torch.cuda.synchronize()
         assert torch.equal(torch.cat([a, b], dim=1), one)
         assert torch.equal(last, xf)
+
+
+# -- the plan autotuner on the card -------------------------------------------
+def test_cuda_hardware_fingerprint_format(cuda):
+    from repro_torch.plan.autotune import hardware_fingerprint
+    name = torch.cuda.get_device_name(0).replace(" ", "_")
+    fp = hardware_fingerprint(cuda)
+    assert fp == f"cuda:{name}x{torch.cuda.device_count()}"
+    assert " " not in fp and hardware_fingerprint() == fp
+    assert hardware_fingerprint("cpu") == "cpu:cpux1"
+
+
+@pytest.mark.parametrize("mode", ["fp32", "int8-csd"])
+def test_every_cuda_candidate_launches_at_batch_16(cuda, mode):
+    """No cuda candidate has a batch tile above the kernel's 16 rows:
+    every one builds and serves a batch of 16, one B2 launch per call."""
+    from repro_torch.plan import candidate_schedules, plan_for
+    from repro_torch.serve import ReservoirEngine
+    p = _esn(mode, cuda, es=0.97, block=32)
+    kmode = "fp32" if mode == "fp32" else "int8"
+    cands = candidate_schedules(plan_for(p.w), kmode, ("cuda",))
+    assert cands and max(c.batch_tile_max for c in cands) <= 16
+    u = torch.zeros((16, 4, 1), device=cuda)
+    for sched in cands:
+        eng = ReservoirEngine(p, schedule=sched)
+        before = specialized_rollout.launches
+        eng.rollout(u)
+        torch.cuda.synchronize()
+        assert specialized_rollout.launches - before == 1
+
+
+@pytest.mark.parametrize("mode", ["fp32", "int8-csd"])
+def test_measured_autotune_on_the_card(cuda, mode):
+    """A measured tuning over both backends on the card: the default is
+    among the trials, the winner no worse than it, the cold pick's
+    backend the winner's, and the winner's engine serves the default
+    schedule's states (int8 bit for bit, fp32 within 1e-4)."""
+    from repro_torch.plan import (ScheduleCache, autotune_rollout,
+                                  default_schedule, plan_for,
+                                  resolve_schedule)
+    from repro_torch.serve import ReservoirEngine
+    p = _esn(mode, cuda, es=0.97, block=32)
+    plan = plan_for(p.w)
+    kmode = "fp32" if mode == "fp32" else "int8"
+    cold = resolve_schedule(plan, kmode, cache=ScheduleCache(), device=cuda)
+    tuned = autotune_rollout(plan, kmode, params=p, top_k=3, reps=2,
+                             cache=ScheduleCache(), device=cuda)
+    default = default_schedule(plan, kmode)
+    keys = [tuple(s.values()) for s, _p, _m in tuned.trials]
+    assert default.key() in keys
+    assert tuned.measured_s <= tuned.default_measured_s
+    assert cold.schedule.backend == tuned.schedule.backend
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    u = torch.randn((16, 32, 1), generator=gen).to(cuda)
+    got = ReservoirEngine(p, schedule=tuned).rollout(u)
+    want = ReservoirEngine(p, schedule=default).rollout(u)
+    torch.cuda.synchronize()
+    tol = 0.0 if kmode == "int8" else 1e-4
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("mode", ["fp32", "int8-csd"])
+def test_auto_engine_serves_the_default_cuda_schedule(cuda, mode):
+    """With a cold cache, ``"auto"`` on the card serves B2 at the default
+    budget, crossover and tile: the card's prior decides the backend and
+    the tile only, and a tie in tile goes to the default."""
+    from repro_torch.plan import autotune_cache, default_schedule, plan_for
+    from repro_torch.serve import ReservoirEngine
+    p = _esn(mode, cuda, es=0.97, block=32)
+    kmode = "fp32" if mode == "fp32" else "int8"
+    autotune_cache().clear()
+    eng = ReservoirEngine(p)
+    want = default_schedule(plan_for(p.w), kmode, "cuda")
+    assert eng.schedule.key() == want.key()
+    assert (eng.backend, eng.vmem_budget, eng.crossover,
+            eng.batch_tile_max) == want.key()[1:]

@@ -27,11 +27,10 @@ import jax.numpy as jnp
 ROOT = pathlib.Path(__file__).resolve().parents[1] / "src"
 PORT, REF = ROOT / "repro_torch", ROOT / "repro"
 
-_A8 = ("A8: the plan autotuner and the rollout cost model it calibrates "
-       "are not ported yet")
 _A9 = ("A9: multi-device serving (sharded engine, elastic shrink/grow) is "
        "not ported yet")
-_A12 = "A12: the LM substrate's configs are not ported yet"
+_A12 = ("A12: the LM substrate's configs and their roofline are not "
+        "ported yet")
 _SHIM = ("deprecated shim of the JAX package (boolean twins, serve(), "
          "RolloutRequest submission, warn_deprecated), not ported")
 _PALLAS = ("Pallas-only argument: the Pallas kernel's interpret mode, "
@@ -52,18 +51,19 @@ EXCEPTIONS = {
          "mistral_nemo_12b", "olmoe_1b_7b", "qwen3_32b",
          "recurrentgemma_2b", "reduced", "reduced(cfg=)", "stablelm_1_6b",
          "supports_shape", "whisper_base", "xlstm_350m"], _A12),
-    "core/costmodel.py": dict.fromkeys(
-        ["ROLLOUT_FEATURES", "RolloutCostModel", "RolloutCostModel.as_dict",
-         "RolloutCostModel.coeffs", "RolloutCostModel.from_dict",
-         "RolloutCostModel.from_dict(d=)", "RolloutCostModel.platform",
-         "RolloutCostModel.predict", "RolloutCostModel.predict(backend=)",
-         "RolloutCostModel.predict(features=)",
-         "default_rollout_cost_model",
-         "default_rollout_cost_model(platform=)", "fit_rollout_cost",
-         "fit_rollout_cost(platform=)", "fit_rollout_cost(samples=)",
-         "rollout_cost_features", "rollout_cost_features(batch=)",
-         "rollout_cost_features(block=)", "rollout_cost_features(steps=)",
-         "rollout_cost_features(summary=)"], _A8),
+    "launch/roofline.py": dict.fromkeys(
+        ["LINK_BW", "PEAK_FLOPS", "RESULTS", "active_params",
+         *_params_of("active_params", "cfg", "total"),
+         "analytic_hbm_bytes", *_params_of(
+             "analytic_hbm_bytes", "cfg", "n_active", "n_dev", "n_total",
+             "shape", "weight_bytes_per_param"),
+         "cell_report", "cell_report(rec=)", "expert_params_per_layer",
+         "expert_params_per_layer(cfg=)", "kv_cache_bytes",
+         *_params_of("kv_cache_bytes", "cfg", "shape"), "load_all",
+         *_params_of("load_all", "mesh_dir", "variants"), "main",
+         "model_flops", *_params_of("model_flops", "cfg", "n_active",
+                                    "shape"),
+         "to_markdown", "to_markdown(reports=)"], _A12),
     "core/ridge.py": dict.fromkeys(
         ["ridge_fit_sharded", *_params_of(
             "ridge_fit_sharded", "axis_name", "lam", "x", "y")], _A9),
@@ -94,11 +94,6 @@ EXCEPTIONS = {
         "FusedReservoir", "block", "interpret"), _PALLAS),
     "kernels/reservoir_step/reservoir_step.py": dict.fromkeys(_params_of(
         "reservoir_step", "block_c", "block_r", "interpret"), _PALLAS),
-    "plan/__init__.py": dict.fromkeys(
-        ["Schedule", "ScheduleCache", "TunedSchedule", "autotune_cache",
-         "autotune_cache_load", "autotune_cache_save", "autotune_rollout",
-         "candidate_schedules", "default_schedule", "plan_fingerprint",
-         "resolve_backend", "resolve_schedule"], _A8),
     "runtime/elastic.py": dict.fromkeys(
         ["AutoscalePolicy", "AutoscalePolicy.cooldown_steps",
          "AutoscalePolicy.decide", "AutoscalePolicy.grow_queue_per_slot",
@@ -128,7 +123,6 @@ EXCEPTIONS = {
          "warn_deprecated(stacklevel=)"], _SHIM),
     "serve/engine.py": {
         **dict.fromkeys(["ReservoirEngine(interpret=)"], _PALLAS),
-        **dict.fromkeys(["ReservoirEngine(schedule=)"], _A8),
         **dict.fromkeys(
             [*_params_of("ReservoirEngine.predictions", "defer_sync",
                          "donate_state", "real_steps", "return_final_state"),
