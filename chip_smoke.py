@@ -40,6 +40,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    states == the default schedule's (int8 bit for bit), the trials'
    cache replayed from a file with no launch, and the cost model refitted
    over all trials;
+9. ``sharded`` (before ``serve_layer``): sharded serving at LARGE_1024
+   int8 on 4 shards (one per card where 4 are visible, all 4 on the one
+   card of a one-card machine): (a) ``ShardedReservoirEngine`` against
+   ``ReservoirEngine`` at batch 16 and 13 (padded to 16) on B2, on B1 and
+   at PAPER_BASELINE fp32 — states, finals and predictions bit for bit,
+   one launch per shard per call — and the torch backend's sharded gap
+   (within SERVE_TOL, printed); (b) a ``DistributedReservoirServer`` (4
+   shards x 4 slots) answering phase 3's burst in 32-step chunks:
+   least-loaded placement, one B2 launch per shard holding a live slot
+   per chunk with the readout fused, every answer == the single-device
+   engine's at the 16-slot pool shape, µs per chunk beside the 16-slot
+   single-device server and B2's device time per chunk; (c) a fault-plan
+   shard death (4 -> 3) then ``grow(1)``: zero drops, carried sequences,
+   exact answers, each rebuild's ms; (d) an ``AutoscalePolicy`` growing
+   a 1-shard server on the backlog and shrinking it as the tail drains,
+   within the pool of 4; (e) ``ridge_fit_sharded`` over the 4 shards
+   against ``ridge_fit`` (fitted values within RIDGE_TOL);
 7. ``serve_layer`` (run last): the rest of the serve layer at
    LARGE_1024: (a) the ``"torch"`` backend against the ``"cuda"`` one (B2)
    at batch 16, T = 64 — int8 at LARGE_1024, fp32-dense at PAPER_BASELINE
@@ -95,6 +112,15 @@ READOUT_TOL = 1e-4
 # projection is one library product (another sum order when I > 1) and
 # fp32-dense sums the recurrent product in a library order
 SERVE_TOL = 1e-4
+# sharded ridge fit vs the one-shot fit: fitted values (float32 Gram sums
+# per shard and a float32 eigensolver on the card, against a float64 host
+# solve).  The LARGE_1024 training Gram's largest eigenvalue is ~4.5e4, so
+# its float32 entries carry ~3e-3 of rounding; a ridge of 1 bounds the
+# solve's amplification of that to ~1e-4 on the fitted values (the
+# smaller ridges of 1e-2 / 1e-4 amplify it 100x / 10^4x: 1e-3 / 3e-2 on
+# the CPU, the same between two float32 Gram sums of one solver)
+RIDGE_TOL = 1e-3
+RIDGE_LAM = 1.0
 
 # phase 3 serves its 24-request burst this many times (fresh server each)
 BURSTS = 5
@@ -152,6 +178,17 @@ class Smoke:
         self.failures: list[str] = []
         self.kernels: dict = {}
         self.card = ""
+        from repro_torch.kernels.reservoir_rollout.reservoir_rollout import (
+            reservoir_rollout, rollout_readout)
+        from repro_torch.kernels.reservoir_rollout.specialized import (
+            specialized_rollout)
+        # the rollout kernels' launch counters; a phase's counts come from
+        # _drive (the fused readouts under "rollout_readout")
+        self._counted = {"specialized_rollout": specialized_rollout,
+                         "reservoir_rollout": reservoir_rollout}
+        self._readout = rollout_readout
+        self.serve_launches: dict = {}
+        self.sharded_launches: dict = {}
 
     def check(self, cond: bool, what: str) -> None:
         if not cond:
@@ -331,6 +368,8 @@ class Smoke:
               "(teacher signal, after 100-step washout)")
         self.check(np.isfinite(err) and err < 0.5, f"NRMSE {err}")
         self.params_1024 = params
+        # (e) of the sharded phase fits a readout over these, sharded
+        self.train_1024 = (states[100:], y_train[100:])
 
         eng = ReservoirEngine(params)
         print(f"backend 'auto' resolved to {eng.backend}: "
@@ -432,6 +471,7 @@ class Smoke:
         self.check(same, "B1 == B2 bit for bit (LARGE_1024 one-shot)")
         print(f"chunked == one-shot: {exact}; B1 == B2: {same}")
         self.requests_per_s = n_req / wall
+        self.specs_1024 = specs
 
         # -- phase 4: fp32 at PAPER_BASELINE -------------------------------
         p800 = init_esn(PAPER_BASELINE, device=self.dev)
@@ -662,6 +702,363 @@ class Smoke:
               f"({base.backend}) states max |diff| {d:.3g}, "
               f"{made} B2 launch")
 
+    # -- phase 9 -------------------------------------------------------------
+    def sharded(self):
+        """Sharded serving at LARGE_1024 int8 on 4 shards: one per card
+        where 4 cards are visible, else the visible cards in turn (all 4
+        on one card on a one-card machine).  (a) the sharded engine
+        against the single-device engine; (b) the distributed server on
+        phase 3's burst; (c) a shard lost and regained; (d) autoscaling
+        within the pool of 4; (e) the sharded ridge fit.  The phase's
+        B1/B2 launch counts cover the sharded engines and servers only:
+        the single-device answers they are checked against are left out."""
+        torch = self.torch
+        from repro_torch.launch.mesh import make_data_mesh
+        cards = torch.cuda.device_count()
+        self.shard_devices = self._shard_devices(cards)
+        self.mesh4 = make_data_mesh(devices=self.shard_devices)
+        self.sharded_launches = dict.fromkeys(
+            [*self._counted, "rollout_readout"], 0)
+        print(f"  4 shards on {[str(d) for d in self.mesh4.devices]} "
+              f"({cards} card(s) visible)")
+        self._sharded_engines()
+        self._sharded_server()
+        self._shard_loss()
+        self._sharded_autoscale()
+        self._sharded_ridge()
+        print("sharded launches (rollout_readout: fused readouts):",
+              self.sharded_launches)
+        for k, n in self.sharded_launches.items():
+            self.check(n > 0, f"{k} launched in sharded")
+
+    def _shard_devices(self, cards):
+        return [self.torch.device("cuda", i % cards) for i in range(4)]
+
+    def _sharded_engines(self):
+        """(a) ``ShardedReservoirEngine`` against ``ReservoirEngine`` at
+        batch 16 and 13 (padded to 16): states, final states and
+        predictions bit for bit — LARGE_1024 on B2 and on B1
+        (``specialize=False``), PAPER_BASELINE fp32 on B2 — with one
+        launch per shard per call and the readout fused.  Then the torch
+        backend sharded against single: its readout is a library product
+        whose algorithm may change with the rows (4 per shard against
+        16), so that one comparison is held to SERVE_TOL and its gap
+        printed."""
+        torch = self.torch
+        from repro_torch.dist import ShardedReservoirEngine
+        from repro_torch.serve import ReservoirEngine
+        for tag, params, kw in (
+                ("LARGE_1024 int8 B2", self.params_1024, {}),
+                ("LARGE_1024 int8 B1", self.params_1024,
+                 {"specialize": False}),
+                ("PAPER_BASELINE fp32 B2", self.params_800, {})):
+            single = ReservoirEngine(params, **kw)
+            sharded = ShardedReservoirEngine(params, mesh=self.mesh4, **kw)
+            fn = ("specialized_rollout" if kw.get("specialize", True)
+                  else "reservoir_rollout")
+            cfg = params.config
+            for batch in (16, 13):
+                gen = torch.Generator(device="cpu").manual_seed(batch)
+                u = torch.randn((batch, 64, cfg.input_dim),
+                                generator=gen).to(self.dev)
+                x0 = (0.3 * torch.randn((batch, cfg.reservoir_dim),
+                                        generator=gen)).to(self.dev)
+                ((gs, gf), gp), made = self._drive(lambda: (
+                    sharded.run_segment(u, x0, want_states=True),
+                    sharded.predictions(u, x0=x0)), self.sharded_launches)
+                ws, wf = single.run_segment(u, x0, want_states=True)
+                wp = single.predictions(u, x0=x0)
+                torch.cuda.synchronize()
+                exact = (torch.equal(gs, ws) and torch.equal(gf, wf)
+                         and torch.equal(gp, wp))
+                self.check(sharded.backend == single.backend == "cuda",
+                           f"{tag}: backends {sharded.backend}, "
+                           f"{single.backend}")
+                self.check(exact, f"sharded != single {tag} batch {batch}: "
+                           f"states {maxdiff(gs, ws):.3g} preds "
+                           f"{maxdiff(gp, wp):.3g}")
+                self.check(made[fn] == 8 and made["rollout_readout"] == 4,
+                           f"{tag} batch {batch}: launches {made} (want 4 "
+                           "per call, 4 fused readouts)")
+                print(f"  (a) {tag} batch {batch}: sharded == single bit "
+                      f"for bit {exact} (states, finals, preds); launches "
+                      f"{made}")
+        single = ReservoirEngine(self.params_1024, backend="torch")
+        sharded = ShardedReservoirEngine(self.params_1024, mesh=self.mesh4,
+                                         backend="torch")
+        gen = torch.Generator(device="cpu").manual_seed(71)
+        u = torch.randn((16, 32, 1), generator=gen).to(self.dev)
+        dim = self.params_1024.config.reservoir_dim
+        x0 = (0.3 * torch.randn((16, dim), generator=gen)).to(self.dev)
+        gs, gf = sharded.run_segment(u, x0, want_states=True)
+        ws, wf = single.run_segment(u, x0, want_states=True)
+        gp, wp = sharded.predictions(u, x0=x0), single.predictions(u, x0=x0)
+        torch.cuda.synchronize()
+        ds, dp = max(maxdiff(gs, ws), maxdiff(gf, wf)), maxdiff(gp, wp)
+        self.check(ds <= SERVE_TOL and dp <= SERVE_TOL,
+                   f"torch backend sharded vs single: states {ds:.3g} "
+                   f"preds {dp:.3g}")
+        print(f"  (a) LARGE_1024 int8 torch backend, 4 x 4 rows vs 16: "
+              f"states max |diff| {ds:.3g} (exact {ds == 0.0}), preds "
+              f"{dp:.3g} (exact {dp == 0.0}) on {self.card}")
+
+    def _sharded_server(self):
+        """(b) A ``DistributedReservoirServer`` (4 shards x 4 slots)
+        answers phase 3's 24-request burst in 32-step chunks: least-loaded
+        admission seats request k on shard k % 4; each chunk is one B2
+        launch per shard holding a live slot, the readout fused; every
+        answer == the single-device engine's at the 16-slot pool shape;
+        the profiler counts the same launches in a second burst.  Then µs
+        per chunk against the single-device 16-slot server (host clock
+        with a final sync, all arrivals at 0, in turns) and B2's
+        device time per chunk (profiler)."""
+        torch = self.torch
+        from repro_torch.dist import (DistributedReservoirServer,
+                                      ShardedReservoirEngine)
+        from repro_torch.serve import (AsyncReservoirServer, ReservoirEngine,
+                                       ServeStats)
+        params, specs = self.params_1024, self.specs_1024
+        self._single_1024 = single = ReservoirEngine(params)
+        self._sharded_1024 = sharded = ShardedReservoirEngine(
+            params, mesh=self.mesh4)
+        b2 = self._counted["specialized_rollout"]
+        standalone = self._readout.launches
+
+        def server():
+            return DistributedReservoirServer(
+                sharded, slots_per_shard=4, chunk_steps=32,
+                stats=ServeStats(), devices=self.shard_devices)
+
+        srv = server()
+        for spec in specs:
+            srv.submit(spec, arrival_time=0.0)
+        placed, per_chunk = {}, []
+
+        def serve():
+            while True:
+                chunks, before = srv.stats.chunks, b2.launches
+                if not srv.step():
+                    return
+                if srv.stats.chunks == chunks:
+                    continue
+                if not placed:
+                    placed.update({q.uid: srv.batcher.shard_of(i) for i, q
+                                   in enumerate(srv.batcher._slots)
+                                   if q is not None})
+                live = {srv.batcher.shard_of(s)
+                        for s in srv.batcher.last_take}
+                per_chunk.append((len(live), b2.launches - before))
+
+        _, made = self._drive(serve, self.sharded_launches)
+        res = srv.results
+        spread = [sum(1 for s in placed.values() if s == k)
+                  for k in range(4)]
+        self.check(placed == {k: k % 4 for k in range(16)},
+                   f"least-loaded placement {placed}")
+        self.check(all(n == m for n, m in per_chunk),
+                   f"B2 launches per chunk != live shards: {per_chunk}")
+        live_total = sum(n for n, _ in per_chunk)
+        self.check(made["specialized_rollout"] == live_total
+                   == made["rollout_readout"]
+                   and self._readout.launches == standalone,
+                   f"server launches {made}, standalone readouts "
+                   f"{self._readout.launches - standalone}")
+        exact = len(res) == len(specs) and all(
+            self._pool_exact(single, spec.inputs, res[spec.uid].preds)
+            for spec in specs)
+        self.check(exact, "sharded server != single engine at the pool "
+                   "shape")
+        print(f"  (b) server: {len(res)} answered, first 16 placed "
+              f"{spread} per shard (request k on shard k % 4: "
+              f"{placed == {k: k % 4 for k in range(16)}}), "
+              f"{srv.stats.chunks} chunks, B2 launches per chunk "
+              f"{[m for _n, m in per_chunk]} (== shards with a live slot "
+              f"{all(n == m for n, m in per_chunk)}), launches {made}; "
+              f"answers == single engine at the pool shape {exact}")
+        # the profiler's count of one burst's B2 launches: the server's
+        # warm-up (one per shard) and one per live shard per chunk
+        def burst():
+            srv = server()
+            for spec in specs:
+                srv.submit(spec, arrival_time=0.0)
+            srv.run()
+
+        burst_us = self._device_us(burst, "rollout_kernel", n=1,
+                                   per_call=4 + live_total)
+        print(f"  (b) profiler: {4 + live_total} rollout_kernel launches "
+              f"per burst (4 warm-up + {live_total} served), "
+              f"{burst_us:.1f} us of B2 device time on {self.card}")
+        # µs per chunk, in turns: single, sharded, sharded, single, ...
+        walls = {"single": [], "sharded": []}
+        chunks = {"single": 0, "sharded": 0}
+        for name in ["single", "sharded", "sharded", "single"] * 3:
+            srv = (server() if name == "sharded" else AsyncReservoirServer(
+                single, n_slots=16, chunk_steps=32, stats=ServeStats()))
+            for spec in specs:
+                srv.submit(spec, arrival_time=0.0)
+
+            def run(srv=srv):
+                t0 = time.perf_counter()
+                srv.run()
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+
+            wall, _ = self._drive(run, self.sharded_launches
+                                  if name == "sharded" else None)
+            walls[name].append(wall)
+            chunks[name] += srv.stats.chunks
+        us = {k: sum(w) / chunks[k] * 1e6 for k, w in walls.items()}
+        u = torch.zeros((16, 32, 1), device=self.dev)
+        x0 = torch.zeros((16, params.config.reservoir_dim), device=self.dev)
+        dev_us = {
+            "sharded": self._device_us(
+                lambda: sharded.run_segment(u, x0, defer_sync=True),
+                "rollout_kernel", n=2, per_call=4),
+            "single": self._device_us(
+                lambda: single.run_segment(u, x0, defer_sync=True),
+                "rollout_kernel", n=2)}
+        self.sharded_times = dict(us_per_chunk=us, device_us=dev_us,
+                                  b2_per_chunk=[m for _n, m in per_chunk])
+        print(f"  (b) us per 32-step chunk, all arrivals at 0, 6 bursts "
+              f"each in turns: sharded 4 x 4 {us['sharded']:.1f} "
+              f"(bursts {[round(w * 1e3, 3) for w in walls['sharded']]} ms)"
+              f" vs single 16-slot {us['single']:.1f} (bursts "
+              f"{[round(w * 1e3, 3) for w in walls['single']]} ms), "
+              f"{us['sharded'] / us['single']:.2f}x; B2 device time per "
+              f"full chunk {dev_us['sharded']:.2f} us (4 launches of 4 "
+              f"rows) vs {dev_us['single']:.2f} us (1 launch of 16) on "
+              f"{self.card}")
+
+    def _timed_rebuilds(self, srv, log):
+        """Wrap ``srv.shrink`` / ``srv.grow`` to log each rebuild's ms
+        (host clock, device synced on both sides)."""
+        torch = self.torch
+
+        def timed(name, fn):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                log[name].append((time.perf_counter() - t0) * 1e3)
+                return out
+            return run
+
+        srv.shrink = timed("shrink", srv.shrink)
+        srv.grow = timed("grow", srv.grow)
+
+    def _shard_loss(self):
+        """(c) A fault plan kills shard 3 after two chunks: the server
+        shrinks 4 -> 3, then ``grow(1)`` restores 4 under the burst: zero
+        drops, carried sequences readmitted, every answer bit-exact."""
+        from repro_torch.dist import DistributedReservoirServer
+        from repro_torch.runtime.faults import FaultEvent, FaultPlan
+        from repro_torch.serve import ServeStats, SubmitSpec
+        plan = FaultPlan([FaultEvent("shard_loss", at=2e-3, shard=3)])
+        srv = DistributedReservoirServer(
+            self._sharded_1024, slots_per_shard=4, chunk_steps=32,
+            chunk_time=1e-3, fault_plan=plan, stats=ServeStats(),
+            devices=self.shard_devices)
+        rebuild_ms = {"shrink": [], "grow": []}
+        self._timed_rebuilds(srv, rebuild_ms)
+        inputs = self._burst(24, 67)
+        for i, x in enumerate(inputs):
+            srv.submit(SubmitSpec(x, uid=i), arrival_time=0.0)
+        widths = []
+
+        def serve():
+            grown = None
+            while srv.step():
+                if grown is None and srv.reshards:
+                    widths.append(srv.n_shards)
+                    grown = srv.grow(1)
+                    widths.append(srv.n_shards)
+            return grown
+
+        grown, made = self._drive(serve, self.sharded_launches)
+        st = srv.stats
+        exact = len(srv.results) == len(inputs) and all(
+            self._pool_exact(self._single_1024, x, srv.results[i].preds)
+            for i, x in enumerate(inputs))
+        self.check(plan.injected == {"shard_loss": 1}
+                   and widths == [3, 4] and srv.n_shards == 4
+                   and srv.reshards == 1 and srv.grows == 1,
+                   f"shard loss: injected {plan.injected}, widths {widths}")
+        self.check(st.completed == len(inputs) and st.timed_out == 0
+                   and st.admitted == st.enqueued == len(inputs)
+                   and srv.readmitted > 0,
+                   f"shard loss dropped requests: {st.completed} completed,"
+                   f" {srv.readmitted} readmitted")
+        self.check(exact, "answers across shrink/grow != single engine")
+        self.rebuild_ms = rebuild_ms
+        print(f"  (c) shard loss: widths 4 -> {widths}, {srv.readmitted} "
+              f"sequences carried, {st.completed}/{len(inputs)} served, "
+              f"{st.timed_out} dropped, answers == single engine at the "
+              f"pool shape {exact}; rebuild ms: shrink "
+              f"{[round(t, 3) for t in rebuild_ms['shrink']]}, grow "
+              f"{[round(t, 3) for t in rebuild_ms['grow']]} on {self.card};"
+              f" launches {made}")
+
+    def _sharded_autoscale(self):
+        """(d) An ``AutoscalePolicy`` grows a 1-shard server on the
+        burst's backlog and shrinks it as the tail drains, never past
+        the pool of 4: zero drops, answers bit-exact."""
+        from repro_torch.dist import (DistributedReservoirServer,
+                                      ShardedReservoirEngine)
+        from repro_torch.launch.mesh import make_data_mesh
+        from repro_torch.runtime.elastic import AutoscalePolicy
+        from repro_torch.serve import ServeStats, SubmitSpec
+        srv = DistributedReservoirServer(
+            ShardedReservoirEngine(self.params_1024, mesh=make_data_mesh(
+                devices=self.shard_devices[:1])),
+            slots_per_shard=4, chunk_steps=32, chunk_time=1e-3,
+            stats=ServeStats(), devices=self.shard_devices,
+            autoscale=AutoscalePolicy(min_shards=1, max_shards=8,
+                                      cooldown_steps=1))
+        inputs = self._burst(32, 73, lo=32, hi=257)
+        for i, x in enumerate(inputs):
+            srv.submit(SubmitSpec(x, uid=i), arrival_time=0.0)
+        widths = []
+
+        def serve():
+            while srv.step():
+                widths.append(srv.n_shards)
+
+        _, made = self._drive(serve, self.sharded_launches)
+        exact = len(srv.results) == len(inputs) and all(
+            self._pool_exact(self._single_1024, x, srv.results[i].preds)
+            for i, x in enumerate(inputs))
+        self.check(srv.grows >= 1 and srv.reshards >= 1
+                   and max(widths) == 4 and min(widths) >= 1,
+                   f"autoscale: widths {widths}, {srv.grows} grows, "
+                   f"{srv.reshards} shrinks")
+        self.check(srv.stats.completed == len(inputs) and exact,
+                   "autoscaled answers")
+        print(f"  (d) autoscale: widths per step {widths}, {srv.grows} "
+              f"grows, {srv.reshards} shrinks (pool of 4, the policy's "
+              f"max 8), {srv.stats.completed}/{len(inputs)} served, "
+              f"answers == single engine {exact}; launches {made}")
+
+    def _sharded_ridge(self):
+        """(e) ``ridge_fit_sharded`` over the training states cut into the
+        4 shards (each on its shard's device) against ``ridge_fit`` on all
+        rows: the fitted values within RIDGE_TOL (a float32 Gram summed
+        per shard, solved by a float32 eigendecomposition on the card,
+        against one Gram solved in float64 on the host)."""
+        from repro_torch.core.ridge import ridge_fit, ridge_fit_sharded
+        x, y = self.train_1024
+        xs = [c.to(d) for c, d in zip(x.chunk(4), self.shard_devices)]
+        ys = [c.to(d) for c, d in zip(y.chunk(4), self.shard_devices)]
+        w_sh = ridge_fit_sharded(xs, ys, RIDGE_LAM, "data")
+        w_one = ridge_fit(x, y, lam=RIDGE_LAM)
+        d = maxdiff(x @ w_sh, x @ w_one)
+        self.check(bool(self.torch.isfinite(w_sh).all())
+                   and d <= RIDGE_TOL,
+                   f"sharded ridge fit vs ridge_fit: fitted values {d:.3g}")
+        print(f"  (e) ridge_fit_sharded over 4 shards ({x.shape[0]} rows) "
+              f"vs ridge_fit: fitted values max |diff| {d:.3g} (tol "
+              f"{RIDGE_TOL}), weights {maxdiff(w_sh, w_one):.3g}")
+
     # -- phase 7 -------------------------------------------------------------
     def serve_layer(self):
         """The rest of the serve layer at LARGE_1024 on the card: the torch
@@ -670,13 +1067,6 @@ class Smoke:
         B1/B2 launch counts cover the servers of (b)-(d) only: the
         backend comparison (a) and the one-shot answers that served ones
         are checked against are left out."""
-        from repro_torch.kernels.reservoir_rollout.reservoir_rollout import (
-            reservoir_rollout, rollout_readout)
-        from repro_torch.kernels.reservoir_rollout.specialized import (
-            specialized_rollout)
-        self._counted = {"specialized_rollout": specialized_rollout,
-                         "reservoir_rollout": reservoir_rollout}
-        self._readout = rollout_readout
         self.serve_launches = dict.fromkeys(
             [*self._counted, "rollout_readout"], 0)
         self._torch_backend()
@@ -689,9 +1079,10 @@ class Smoke:
         for k, n in self.serve_launches.items():
             self.check(n > 0, f"{k} launched in serve_layer")
 
-    def _drive(self, call, count=True):
-        """Run ``call`` and, with ``count``, add the B1/B2 launches it made
-        to the phase's counts; returns (its result, those launches)."""
+    def _drive(self, call, into=None):
+        """Run ``call`` and add the B1/B2 launches it made to the phase's
+        counts ``into`` (none: left out of every count); returns (its
+        result, those launches)."""
         for fn in self._counted.values():
             fn.launches = 0
         self._readout.fused_launches = 0
@@ -699,9 +1090,9 @@ class Smoke:
         self.torch.cuda.synchronize()
         made = {k: fn.launches for k, fn in self._counted.items()}
         made["rollout_readout"] = self._readout.fused_launches
-        if count:
+        if into is not None:
             for k, n in made.items():
-                self.serve_launches[k] += n
+                into[k] += n
         return out, made
 
     def _backend_pair(self, params, tag, seed, **kw):
@@ -747,7 +1138,7 @@ class Smoke:
             for name, eng in (("cuda", c), ("torch", t))}
         times = {}
         for name, call in calls.items():
-            _, made = self._drive(call, count=False)
+            _, made = self._drive(call)
             ms = self.timed(call, 20)
             # the kernel's device time now; the torch backend's (thousands
             # of small launches per profile) last in the phase
@@ -833,7 +1224,7 @@ class Smoke:
             # every fifth request asks for a 2 ms answer
             srv.submit(SubmitSpec(x, uid=i, deadline=2e-3 if i % 5 == 4
                                   else None), arrival_time=0.0)
-        res, made = self._drive(srv.run)
+        res, made = self._drive(srv.run, self.serve_launches)
         st = srv.stats
         ok = [i for i, r in res.items() if r.status == "ok"]
         exact = all(self._pool_exact(eng, inputs[i], res[i].preds)
@@ -871,7 +1262,7 @@ class Smoke:
                                        fault_plan=plan)
             for i, x in enumerate(inputs):
                 srv.submit(SubmitSpec(x, uid=i), arrival_time=2e-4 * i)
-            res, made = self._drive(srv.run)
+            res, made = self._drive(srv.run, self.serve_launches)
             runs[name] = (srv, res, plan, made)
         clean, faulty = runs["clean"], runs["faults"]
         same = len(faulty[1]) == len(inputs) and all(
@@ -916,7 +1307,7 @@ class Smoke:
                         p, w_out=1.5 * p.w_out))
             return published
 
-        published, made = self._drive(serve)
+        published, made = self._drive(serve, self.serve_launches)
         res = srv.results
         pinned = [(q.model, q.pinned_version) for q in handles]
         versions_ok = all(res[i].timings["version"] == v
@@ -1466,16 +1857,17 @@ class Smoke:
         return rows
 
     def _device_us(self, call, kernel: str, n: int = 1, flush=False,
-                   required=True):
+                   required=True, per_call=1):
         """Device µs per call of the launches of ``kernel`` (every kernel
         the call launches with ``kernel=""``), from a profile of ``n``
         calls; with ``flush`` a 128 MiB buffer is written before each call
         (the 50 MB L2 holds none of the operands: cold L2).  A named
-        kernel must show one launch per call (every call at least one
-        launch), else the profile is taken again, up to five times a
-        second apart, and then the run fails.  Only ``required=False``
-        (the torch backend's device time, hundreds of small launches per
-        call) returns None instead, printed as "not measured"."""
+        kernel must show ``per_call`` launches per call (every call at
+        least one launch), else the profile is taken again, up to five
+        times a second apart, and then the run fails.  Only
+        ``required=False`` (the torch backend's device time, hundreds of
+        small launches per call) returns None instead, printed as "not
+        measured"."""
         torch = self.torch
         if flush:
             buf = torch.empty(32 << 20, dtype=torch.float32, device=self.dev)
@@ -1494,9 +1886,9 @@ class Smoke:
                     if e.device_type == torch.autograd.DeviceType.CUDA
                     and kernel in e.key]
             count = sum(e.count for e in rows)
-            if count == n or (not kernel and count >= n):
+            if count == n * per_call or (not kernel and count >= n):
                 return sum(e.device_time_total for e in rows) / n
-        what = (f"{n} launches of {kernel}" if kernel
+        what = (f"{n * per_call} launches of {kernel}" if kernel
                 else f"a launch in each of {n} calls")
         if required:
             raise RuntimeError(f"the profiler did not record {what} in "
@@ -1531,6 +1923,7 @@ class Smoke:
             rows.append(dict(
                 name=name, route="cuda", source=source, replaces=rep,
                 launches=self.launches[name],
+                launches_sharded=self.sharded_launches.get(name, 0),
                 launches_serve_layer=self.serve_launches.get(name, 0),
                 max_abs_err=max(v for v in e.values() if v is not None),
                 **{f"max_abs_err_{m}": v for m, v in e.items()},
@@ -1564,7 +1957,8 @@ def main() -> int:
     # launches must not come before the kernels' timing phases
     for phase in (smoke.build, smoke.twins, smoke.main_path,
                   smoke.baseline_twins, smoke.fixed_matrix, smoke.times,
-                  smoke.fixed_times, smoke.autotune, smoke.serve_layer):
+                  smoke.fixed_times, smoke.autotune, smoke.sharded,
+                  smoke.serve_layer):
         t0 = time.perf_counter()
         print(f"== {phase.__name__}")
         try:

@@ -9,10 +9,13 @@ normal equations are then solved once on the host in float64.
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
 import torch
 
-__all__ = ["gram_accumulate", "ridge_solve", "ridge_fit"]
+__all__ = ["gram_accumulate", "ridge_solve", "ridge_fit",
+           "ridge_fit_sharded"]
 
 
 def gram_accumulate(x: torch.Tensor, y: torch.Tensor,
@@ -58,3 +61,29 @@ def ridge_fit(x: torch.Tensor, y: torch.Tensor,
     b = xty.cpu().numpy().astype(np.float64)
     w = np.linalg.solve(a + lam * np.eye(a.shape[0]), b)
     return torch.as_tensor(w, dtype=torch.float32, device=x.device)
+
+
+def ridge_fit_sharded(x: Sequence[torch.Tensor], y: Sequence[torch.Tensor],
+                      lam: float, axis_name: str) -> torch.Tensor:
+    """Ridge fit over rows sharded across the replicas of ``axis_name``.
+
+    ``x`` and ``y`` hold one tensor per shard, in shard order, each on its
+    shard's device.  Each shard accumulates its own Gram block there; the
+    blocks are summed in shard order on the first shard's device — the
+    JAX package's ``psum`` over ``axis_name`` — and solved with
+    :func:`ridge_solve`.  Only the (d x d) / (d x k) statistics move
+    between devices, never the trajectories, so the traffic is
+    independent of sequence length.
+    """
+    if len(x) != len(y) or not x:
+        raise ValueError(f"ridge_fit_sharded needs one (x, y) pair per "
+                         f"{axis_name!r} shard, got {len(x)} x and "
+                         f"{len(y)} y")
+    dev = x[0].device
+    xtx = xty = None
+    for xs, ys in zip(x, y):
+        a, b = gram_accumulate(xs, ys)
+        a, b = a.to(dev), b.to(dev)
+        xtx = a if xtx is None else xtx + a
+        xty = b if xty is None else xty + b
+    return ridge_solve(xtx, xty, lam)

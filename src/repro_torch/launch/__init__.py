@@ -1,1 +1,2 @@
-"""Launch layer: the rollout roofline (the LM half comes with its configs)."""
+"""Launch layer: the data mesh of sharded serving and the rollout roofline
+(the LM half comes with its configs)."""

@@ -1,2 +1,2 @@
-"""Runtime support: deterministic fault injection (``faults``) and the
-live-swap contract (``elastic``)."""
+"""Runtime support: deterministic fault injection (``faults``) and elastic
+re-planning, autoscaling and the live-swap contract (``elastic``)."""

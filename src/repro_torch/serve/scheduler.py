@@ -60,7 +60,10 @@ class QueuedRequest:
 
     ``model`` routes the request to a registry tenant; ``pinned_version``
     is stamped when the request seats and sticks for its whole life — a
-    live swap never migrates in-flight work to the new version.
+    live swap never migrates in-flight (or shrink-re-admitted) work to the
+    new version.  ``requeued`` marks a request put back in the queue by
+    an elastic rebuild: its next seat is a re-admission, which the
+    server's admission stats must not count twice.
     """
 
     request: RolloutRequest
@@ -70,6 +73,7 @@ class QueuedRequest:
     first_output_time: float | None = None
     finish_time: float | None = None
     deadline: float | None = None
+    requeued: bool = False               # back in the queue after a rebuild
     model: str | None = None             # registry tenant (None = default)
     pinned_version: int | None = None    # frozen at admission
     want_states: bool | None = None      # None = the pool's default
@@ -113,12 +117,14 @@ class ContinuousBatcher:
     model*, each at the full pool shape — the same shape, and therefore
     the same per-row arithmetic, as the single-tenant chunk, which keeps
     cross-tenant interleaving bit-exact.  Post-chunk states merge by exact
-    row selection (``torch.where``).
+    row selection (``torch.where``).  ``warm=False`` skips the warm-up
+    chunk call at construction.
     """
 
     def __init__(self, engine, *, n_slots: int = 8, chunk_steps: int = 16,
                  want_states: bool | None = None,
-                 zero_copy: bool | None = None, resolver=None):
+                 zero_copy: bool | None = None, warm: bool = True,
+                 resolver=None):
         if n_slots < 1 or chunk_steps < 1:
             raise ValueError("n_slots and chunk_steps must be >= 1")
         self.engine = engine
@@ -162,7 +168,12 @@ class ContinuousBatcher:
         self.fault_plan = None
         self.last_backoff_s = 0.0
         self.last_retries = 0
-        self._warm()
+        # per-slot view of the last chunk, for per-shard/tenant telemetry
+        self.last_take: dict = {}               # slot -> steps, last chunk
+        self.last_retired_slots: list = []
+        self.last_models: dict = {}             # slot -> model, last chunk
+        if warm:
+            self._warm()
 
     def _want_of(self, qreq: QueuedRequest) -> bool:
         return (self.want_states if qreq.want_states is None
@@ -222,6 +233,19 @@ class ContinuousBatcher:
     def has_free_slot(self) -> bool:
         return any(s is None for s in self._slots)
 
+    def _free_slot(self) -> int:
+        """Pick the free slot to seat the next request in.  Subclass hook:
+        the sharded batcher overrides this with least-loaded-shard
+        admission."""
+        return self._slots.index(None)
+
+    def shard_of(self, slot: int) -> int | None:
+        """Which device shard ``slot`` maps to — ``None`` on the
+        single-device pool.  Subclass hook: the sharded batcher answers
+        the real shard index, and the observability layer uses it to
+        label per-shard queue-wait/latency series."""
+        return None
+
     def admit(self, qreq: QueuedRequest) -> int:
         """Seat a request in a free slot (zero state, or its ``x0``).
 
@@ -237,7 +261,7 @@ class ContinuousBatcher:
             raise ValueError(
                 "readout not trained on the serving engine; submit with "
                 "want_states=True")
-        slot = self._slots.index(None)
+        slot = self._free_slot()
         self._slot_engines[slot] = eng
         self._slots[slot] = qreq
         self._pos[slot] = 0
@@ -342,7 +366,7 @@ class ContinuousBatcher:
             out, xf = self._faulting_call(
                 eng, u, prev, want=want,
                 real_steps=sum(take.get(i, 0) for i in slots),
-                donate=donate)
+                donate=donate, **self._call_kwargs(slots))
             if single:
                 new_states = xf
             else:
@@ -362,9 +386,12 @@ class ContinuousBatcher:
                 for i in slots:
                     self._chunks[i].append(out_h[i, :take[i]].copy())
         self._states = new_states
+        models = {}
         for i, n in take.items():
             self._pos[i] += n
+            models[i] = self._slots[i].model
         retired = []
+        retired_slots = []
         # retire in a second pass: a retirement materializes the shared
         # chunk buffer (rewriting every rider's entry), so every rider
         # must have its entry before the first retiree triggers that
@@ -372,12 +399,23 @@ class ContinuousBatcher:
             q = self._slots[i]
             if self._pos[i] >= q.length:
                 retired.append((q, self._assemble(i)))
+                retired_slots.append(i)
                 self._slots[i] = None
                 self._chunks[i] = []
                 self._slot_engines[i] = self.engine
+        self.last_take = dict(take)
+        self.last_retired_slots = retired_slots
+        self.last_models = models
         return retired, sum(take.values())
 
-    def _faulting_call(self, eng, u, prev, *, want, real_steps, donate):
+    def _call_kwargs(self, slots: list) -> dict:
+        """Extra ``run_segment`` arguments of a chunk call that serves
+        ``slots``.  Subclass hook: the sharded batcher names the shards
+        holding them, so a shard with no live slot makes no launch."""
+        return {}
+
+    def _faulting_call(self, eng, u, prev, *, want, real_steps, donate,
+                       **kw):
         """One chunk call of ``eng`` under the (optional) fault plan.
 
         An injected :class:`~repro_torch.runtime.faults.TransientFault` is
@@ -395,7 +433,7 @@ class ContinuousBatcher:
                     fp.check_call()
                 return eng.run_segment(
                     u, prev, want_states=want, real_steps=real_steps,
-                    donate_state=donate, defer_sync=self.zero_copy)
+                    donate_state=donate, defer_sync=self.zero_copy, **kw)
             except TransientFault:
                 if attempt >= fp.max_attempts:
                     raise
@@ -417,17 +455,46 @@ class ContinuousBatcher:
                 if c is chunk:
                     entries[j] = (host[s, :n].copy(), n)
 
+    def _slot_rows(self, slot: int) -> list:
+        """A slot's chunk outputs as trimmed host rows (zero-copy path),
+        copying any still device-side buffer to the host."""
+        entries = self._chunks[slot]
+        for idx in range(len(entries)):
+            if isinstance(entries[idx][0], _DeviceChunk):
+                self._materialize(entries[idx][0])   # rewrites entries[idx]
+        return [row for row, _n in entries]
+
+    def remaining_inputs(self, slot: int) -> np.ndarray:
+        """A live slot's not-yet-consumed input steps, (T_left, I) float32.
+
+        On the zero-copy path the device-resident lane is the source of
+        truth — the caller's host buffer was free to be reused the moment
+        ``admit()`` uploaded it, so the elastic-rebuild snapshot must NOT
+        re-read it."""
+        q = self._slots[slot]
+        lo = self._pos[slot]
+        if not self.zero_copy:
+            return np.asarray(q.request.inputs, np.float32)[lo:]
+        cs = self.chunk_steps
+        n_chunks = max(1, -(-q.length // cs))
+        flat = self._u_dev[slot, :n_chunks].cpu().numpy().reshape(
+            n_chunks * cs, self._in_dim)
+        return flat[lo: q.length]
+
+    def chunk_outputs(self, slot: int) -> list:
+        """Host copies of a live slot's chunks so far (copies from the
+        device; used by the elastic-rebuild snapshot, not the hot loop)."""
+        if self.zero_copy:
+            return self._slot_rows(slot)
+        return list(self._chunks[slot])
+
     def _assemble(self, slot: int) -> np.ndarray:
         """Concatenate a retiring slot's chunks into its full output (the
         zero-copy path copies each shared buffer to the host here, at most
         once)."""
-        entries = self._chunks[slot]
-        if not self.zero_copy:
-            return np.concatenate(entries, axis=0)
-        for idx in range(len(entries)):
-            if isinstance(entries[idx][0], _DeviceChunk):
-                self._materialize(entries[idx][0])   # rewrites entries[idx]
-        return np.concatenate([row for row, _n in entries], axis=0)
+        if self.zero_copy:
+            return np.concatenate(self._slot_rows(slot), axis=0)
+        return np.concatenate(self._chunks[slot], axis=0)
 
 
 class AsyncReservoirServer:
@@ -509,6 +576,11 @@ class AsyncReservoirServer:
         return ServeStats.merge([self.tenant_stats[n] for n in names],
                                 labels=names)
 
+    def _tenant_engine(self, name: str, version: int):
+        """Engine for a pinned (model, version) — the seam the sharded
+        server overrides to build engines over its own devices."""
+        return self.registry.engine(name, version)
+
     def _resolve_engine(self, qreq: QueuedRequest):
         """Admission-time routing: pin the model's active version to the
         request (a later ``publish()`` must not migrate it) and return its
@@ -517,20 +589,29 @@ class AsyncReservoirServer:
             return self.batcher.engine
         if qreq.pinned_version is None:
             qreq.pinned_version = self.registry.active_version(qreq.model)
-        return self.registry.engine(qreq.model, qreq.pinned_version)
+        return self._tenant_engine(qreq.model, qreq.pinned_version)
 
     def prewarm_model(self, name: str, version: int):
         """Build a model version's engine and run this pool's chunk shape
         on it before any request routes to it — ``publish()`` calls this
         on every attached server so cutover never builds under traffic."""
-        eng = self.registry.engine(name, version)
+        eng = self._tenant_engine(name, version)
         self.batcher.warm_engine(eng)
         return eng
 
-    @staticmethod
-    def _labels(qreq: QueuedRequest) -> dict:
-        """Metric labels of one request: its tenant when routed."""
-        return {} if qreq.model is None else {"model": qreq.model}
+    def _obs_labels(self, qreq: QueuedRequest,
+                    slot: int | None = None) -> dict:
+        """Metric labels for one request: tenant when routed, shard when
+        the pool is sharded and the request holds (or held) ``slot``
+        (nothing otherwise — unlabeled series merge naturally)."""
+        labels: dict = {}
+        if qreq.model is not None:
+            labels["model"] = qreq.model
+        if slot is not None:
+            shard = self.batcher.shard_of(slot)
+            if shard is not None:
+                labels["shard"] = shard
+        return labels
 
     # -- queue ---------------------------------------------------------------
     def submit(self, spec: SubmitSpec, arrival_time: float | None = None,
@@ -581,7 +662,7 @@ class AsyncReservoirServer:
                 return self._reject(qreq, verdict)
         heapq.heappush(self._queue, (at, qreq.seq, qreq))
         self.stats.record_enqueue()
-        obs.inc("requests_submitted_total", **self._labels(qreq))
+        obs.inc("requests_submitted_total", **self._obs_labels(qreq))
         obs.span("request.enqueue", at, trace_id=qreq.trace_id,
                  clock="server", uid=str(qreq.uid), model=qreq.model)
         ts = self._tstats(qreq.model)
@@ -597,7 +678,7 @@ class AsyncReservoirServer:
         self.stats.record_rejection(shed=verdict.shed)
         obs.inc("requests_shed_total" if verdict.shed
                 else "requests_rejected_total",
-                reason=verdict.reason, **self._labels(qreq))
+                reason=verdict.reason, **self._obs_labels(qreq))
         obs.span("request.reject", self.now, trace_id=qreq.trace_id,
                  clock="server", uid=str(qreq.uid), reason=verdict.reason)
         ts = self._tstats(qreq.model)
@@ -636,7 +717,7 @@ class AsyncReservoirServer:
     def _timeout(self, qreq: QueuedRequest) -> None:
         """Bookkeeping for one queued request dropped past its deadline."""
         self.stats.record_timeout()
-        obs.inc("requests_timed_out_total", **self._labels(qreq))
+        obs.inc("requests_timed_out_total", **self._obs_labels(qreq))
         obs.span("request.timeout", self.now, trace_id=qreq.trace_id,
                  clock="server", uid=str(qreq.uid))
         ts = self._tstats(qreq.model)
@@ -676,16 +757,21 @@ class AsyncReservoirServer:
                 # key) for the next sweep
                 held.append(heapq.heappop(self._queue))
                 self.stats.record_quota_hold()
-                obs.inc("quota_holds_total", **self._labels(qreq))
+                obs.inc("quota_holds_total", **self._obs_labels(qreq))
                 self._tstats(qreq.model).record_quota_hold()
                 continue
             heapq.heappop(self._queue)
             qreq.admit_time = self.now
             slot = self.batcher.admit(qreq)
             self.admission_order.append(qreq.uid)
+            if qreq.requeued:
+                # carried across an elastic rebuild: seated once already
+                qreq.requeued = False
+                continue
             wait = self.now - qreq.arrival_time
             self.stats.record_admission(wait)
-            obs.observe("queue_wait_seconds", wait, **self._labels(qreq))
+            obs.observe("queue_wait_seconds", wait,
+                        **self._obs_labels(qreq, slot))
             obs.span("request.queued", qreq.arrival_time, self.now,
                      trace_id=qreq.trace_id, clock="server",
                      uid=str(qreq.uid), slot=slot)
@@ -752,12 +838,18 @@ class AsyncReservoirServer:
         obs.span("scheduler.chunk", chunk_start, self.now, clock="server",
                  live_steps=real_steps, retired=len(retired))
         obs.observe("chunk_seconds", wall)
+        # per-slot shard labels for this chunk's retirees (run_chunk
+        # already freed their slots, so read its per-chunk view)
+        slot_of = {q.uid: i for i, q in enumerate(self.batcher._slots)
+                   if q is not None}
+        slot_of.update(zip((q.uid for q, _ in retired),
+                           self.batcher.last_retired_slots))
         for qreq, out in retired:
             qreq.finish_time = self.now
             latency = self.now - qreq.arrival_time
             self.results[qreq.uid] = self._package(qreq, out)
             self.stats.record_completion(latency)
-            labels = self._labels(qreq)
+            labels = self._obs_labels(qreq, slot_of.get(qreq.uid))
             obs.observe("request_latency_seconds", latency,
                         path="scheduler", **labels)
             obs.inc("requests_completed_total", **labels)
@@ -775,7 +867,8 @@ class AsyncReservoirServer:
                 qreq.first_output_time = self.now
                 ttfp = self.now - qreq.arrival_time
                 self.stats.record_first_output(ttfp)
-                obs.observe("ttfp_seconds", ttfp, **self._labels(qreq))
+                obs.observe("ttfp_seconds", ttfp,
+                            **self._obs_labels(qreq, slot_of.get(qreq.uid)))
                 obs.span("request.first_output", self.now,
                          trace_id=qreq.trace_id, clock="server",
                          uid=str(qreq.uid))

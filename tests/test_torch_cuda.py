@@ -669,3 +669,118 @@ def test_auto_engine_serves_the_default_cuda_schedule(cuda, mode):
     assert eng.schedule.key() == want.key()
     assert (eng.backend, eng.vmem_budget, eng.crossover,
             eng.batch_tile_max) == want.key()[1:]
+
+
+# -- sharded serving on the card (N shards on one card) -----------------------
+def _card_mesh(cuda, n):
+    """N shards: one per card when there are N cards, else N on one."""
+    from repro_torch.launch.mesh import make_data_mesh
+    cards = torch.cuda.device_count()
+    devs = ([torch.device("cuda", i) for i in range(n)] if cards >= n
+            else [cuda] * n)
+    return make_data_mesh(devices=devs)
+
+
+@pytest.mark.parametrize("batch", [16, 13])
+@pytest.mark.parametrize("mode,kw", [("int8-csd", {}), ("fp32", {}),
+                                     ("int8-csd", {"specialize": False})])
+def test_sharded_engine_equals_single_on_the_card(cuda, mode, kw, batch):
+    """(a) 4 shards (batch 13 pads to 16) against the single-device engine:
+    states and fused-readout predictions bit for bit (the kernels compute
+    every row alike whatever the batch), one launch per shard, no
+    standalone readout launch."""
+    from repro_torch.dist import ShardedReservoirEngine
+    from repro_torch.serve import ReservoirEngine
+    p = _esn(mode, cuda)
+    single = ReservoirEngine(p, backend="cuda", **kw)
+    sharded = ShardedReservoirEngine(p, mesh=_card_mesh(cuda, 4),
+                                     backend="cuda", **kw)
+    fn = specialized_rollout if kw.get("specialize", True) \
+        else reservoir_rollout
+    gen = torch.Generator(device="cpu").manual_seed(batch)
+    u = torch.randn((batch, 24, 1), generator=gen).to(cuda)
+    x0 = (0.3 * torch.randn((batch, 256), generator=gen)).to(cuda)
+    for want_states in (True, False):
+        before = fn.launches, rollout_readout.launches
+        got, xf = sharded.run_segment(u, x0, want_states=want_states)
+        assert (fn.launches - before[0],
+                rollout_readout.launches - before[1]) == (4, 0)
+        want, wxf = single.run_segment(u, x0, want_states=want_states)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(xf, wxf)
+
+
+@pytest.mark.parametrize("zero_copy", [True, False])
+def test_sharded_server_one_launch_per_live_shard_on_the_card(cuda,
+                                                             zero_copy):
+    """(b) 4 shards x 4 slots answer a burst bit for bit as the
+    single-device 16-slot server; each chunk is one B2 launch per shard
+    holding a live slot."""
+    from repro_torch.dist import (DistributedReservoirServer,
+                                  ShardedReservoirEngine)
+    from repro_torch.serve import (AsyncReservoirServer, ReservoirEngine,
+                                   SubmitSpec)
+    p = _esn("int8-csd", cuda)
+    mesh = _card_mesh(cuda, 4)
+    srv = DistributedReservoirServer(
+        ShardedReservoirEngine(p, mesh=mesh), slots_per_shard=4,
+        chunk_steps=8, chunk_time=1.0, zero_copy=zero_copy,
+        devices=list(mesh.devices))
+    single = AsyncReservoirServer(ReservoirEngine(p), n_slots=16,
+                                  chunk_steps=8, chunk_time=1.0,
+                                  zero_copy=zero_copy)
+    rng = np.random.default_rng(10)
+    inputs = [rng.standard_normal((int(n), 1)).astype(np.float32)
+              for n in rng.integers(4, 40, 24)]
+    for s in (srv, single):
+        for i, x in enumerate(inputs):
+            s.submit(SubmitSpec(x, uid=i), arrival_time=0.0)
+    expected, before = 0, specialized_rollout.launches
+    while True:
+        chunks = srv.stats.chunks
+        if not srv.step():
+            break
+        if srv.stats.chunks > chunks:
+            expected += len({srv.batcher.shard_of(s)
+                             for s in srv.batcher.last_take})
+    assert specialized_rollout.launches - before == expected
+    want = single.run()
+    for i in range(len(inputs)):
+        np.testing.assert_array_equal(srv.results[i].preds, want[i].preds)
+
+
+def test_sharded_shrink_grow_and_shard_death_on_the_card(cuda):
+    """(c) A fault-plan shard death shrinks 4 -> 3, ``grow(1)`` restores
+    4: zero drops, carried sequences, answers bit for bit as the
+    undisturbed single-device server."""
+    from repro_torch.dist import (DistributedReservoirServer,
+                                  ShardedReservoirEngine)
+    from repro_torch.runtime.faults import FaultEvent, FaultPlan
+    from repro_torch.serve import (AsyncReservoirServer, ReservoirEngine,
+                                   SubmitSpec)
+    p = _esn("int8-csd", cuda)
+    mesh = _card_mesh(cuda, 4)
+    plan = FaultPlan([FaultEvent("shard_loss", at=2.0, shard=3)])
+    srv = DistributedReservoirServer(
+        ShardedReservoirEngine(p, mesh=mesh), slots_per_shard=4,
+        chunk_steps=8, chunk_time=1.0, fault_plan=plan,
+        devices=list(mesh.devices))
+    single = AsyncReservoirServer(ReservoirEngine(p), n_slots=16,
+                                  chunk_steps=8, chunk_time=1.0)
+    rng = np.random.default_rng(11)
+    inputs = [rng.standard_normal((int(n), 1)).astype(np.float32)
+              for n in rng.integers(16, 64, 24)]
+    for s in (srv, single):
+        for i, x in enumerate(inputs):
+            s.submit(SubmitSpec(x, uid=i), arrival_time=0.0)
+    grown = None
+    while srv.step():
+        if grown is None and srv.reshards:
+            assert srv.n_shards == 3
+            grown = srv.grow(1)
+    assert grown["n_shards_after"] == 4 and srv.n_shards == 4
+    assert srv.readmitted > 0 and plan.injected == {"shard_loss": 1}
+    assert srv.stats.completed == len(inputs) == len(srv.results)
+    want = single.run()
+    for i in range(len(inputs)):
+        np.testing.assert_array_equal(srv.results[i].preds, want[i].preds)

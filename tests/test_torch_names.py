@@ -7,7 +7,10 @@ each class's public methods, properties and annotated fields, and the
 parameter names of every public function and method.  Every name of the
 reference must exist in the port, except those listed in ``EXCEPTIONS``
 by name with their reason; an exception whose name has since been ported
-fails too, so the list stays exact.  The port may have more names.
+fails too, so the list stays exact.  The port may have more names;
+those that stand for JAX's own machinery (``DataMesh`` for
+``jax.sharding.Mesh``, the ``devices=`` pool for ``jax.devices()``) are
+listed in ``DEPARTURES`` with their reasons and held to be the port's only.
 
 The names repaired here (``core`` re-exports, ``ridge_solve``,
 ``BlockSparse.to_dense``, ``PlanStats.as_dict``, ``RolloutBand.n_cols``,
@@ -27,10 +30,17 @@ import jax.numpy as jnp
 ROOT = pathlib.Path(__file__).resolve().parents[1] / "src"
 PORT, REF = ROOT / "repro_torch", ROOT / "repro"
 
-_A9 = ("A9: multi-device serving (sharded engine, elastic shrink/grow) is "
-       "not ported yet")
 _A12 = ("A12: the LM substrate's configs and their roofline are not "
         "ported yet")
+_A12_MESH = ("A12: the TPU-pod production and host meshes (16 x 16 chips, "
+             "2 pods) serve the LM substrate; the reservoir server needs "
+             "only the data mesh")
+_A12_TP = ("A12: logical-axis tensor-parallel / FSDP / KV-cache sharding "
+           "rules of the LM substrate; the reservoir server needs only the "
+           "batch axis")
+_DONATE = ("permanent departure: the helper mutes JAX's buffer-donation "
+           "warning for the single-device and sharded dispatch paths; "
+           "PyTorch writes the carry in place and has no warning to mute")
 _SHIM = ("deprecated shim of the JAX package (boolean twins, serve(), "
          "RolloutRequest submission, warn_deprecated), not ported")
 _PALLAS = ("Pallas-only argument: the Pallas kernel's interpret mode, "
@@ -51,6 +61,9 @@ EXCEPTIONS = {
          "mistral_nemo_12b", "olmoe_1b_7b", "qwen3_32b",
          "recurrentgemma_2b", "reduced", "reduced(cfg=)", "stablelm_1_6b",
          "supports_shape", "whisper_base", "xlstm_350m"], _A12),
+    "launch/mesh.py": dict.fromkeys(
+        ["make_host_mesh", "make_production_mesh",
+         "make_production_mesh(multi_pod=)"], _A12_MESH),
     "launch/roofline.py": dict.fromkeys(
         ["LINK_BW", "PEAK_FLOPS", "RESULTS", "active_params",
          *_params_of("active_params", "cfg", "total"),
@@ -64,9 +77,11 @@ EXCEPTIONS = {
          "model_flops", *_params_of("model_flops", "cfg", "n_active",
                                     "shape"),
          "to_markdown", "to_markdown(reports=)"], _A12),
-    "core/ridge.py": dict.fromkeys(
-        ["ridge_fit_sharded", *_params_of(
-            "ridge_fit_sharded", "axis_name", "lam", "x", "y")], _A9),
+    "dist/engine.py": dict.fromkeys(
+        ["ShardedReservoirEngine(interpret=)"], _PALLAS),
+    "dist/scheduler.py": dict.fromkeys(
+        ["DistributedReservoirServer(return_states=)",
+         "ShardedContinuousBatcher(return_states=)"], _SHIM),
     "kernels/bcsr_matmul/bcsr_matmul.py": dict.fromkeys(_params_of(
         "bcsr_matmul", "block", "block_cols", "block_rows", "blocks",
         "interpret", "out_cols"), _PALLAS),
@@ -94,30 +109,18 @@ EXCEPTIONS = {
         "FusedReservoir", "block", "interpret"), _PALLAS),
     "kernels/reservoir_step/reservoir_step.py": dict.fromkeys(_params_of(
         "reservoir_step", "block_c", "block_r", "interpret"), _PALLAS),
-    "runtime/elastic.py": dict.fromkeys(
-        ["AutoscalePolicy", "AutoscalePolicy.cooldown_steps",
-         "AutoscalePolicy.decide", "AutoscalePolicy.grow_queue_per_slot",
-         "AutoscalePolicy.max_shards", "AutoscalePolicy.min_shards",
-         "AutoscalePolicy.shrink_occupancy",
-         *_params_of("AutoscalePolicy.decide", "live", "n_shards",
-                     "n_slots", "pending"),
-         "Heartbeats", "Heartbeats.beat", "Heartbeats.failed",
-         "Heartbeats.timeout_s", *_params_of("Heartbeats.beat", "host",
-                                             "now"),
-         "Heartbeats.failed(now=)", "StragglerWatchdog",
-         *_params_of("StragglerWatchdog", "on_straggler", "threshold",
-                     "window"),
-         "StragglerWatchdog.median", "StragglerWatchdog.record",
-         *_params_of("StragglerWatchdog.record", "duration_s", "step"),
-         "grow_serve_plan", *_params_of("grow_serve_plan", "added",
-                                        "max_shards", "n_shards"),
-         "plan_mesh", *_params_of("plan_mesh", "model_parallel",
-                                  "n_devices", "pods"),
-         "replan_after_failure", *_params_of(
-             "replan_after_failure", "failed", "model_parallel", "pods",
-             "prev_devices"),
-         "shrink_serve_plan", *_params_of("shrink_serve_plan", "failed",
-                                          "n_shards")], _A9),
+    "parallel/sharding.py": dict.fromkeys(
+        ["TP_AXES", "batch_sharding", *_params_of("batch_sharding", "mesh",
+                                                  "ndim"),
+         "cache_sharding", *_params_of(
+             "cache_sharding", "batch_dim", "kv_dim", "mesh", "n_kv",
+             "seq_dim", "shape"),
+         "param_shardings", *_params_of(
+             "param_shardings", "axes_tree", "expert_fsdp", "fsdp", "mesh",
+             "shapes_tree", "use_tp"),
+         "resolve_axes", *_params_of(
+             "resolve_axes", "expert_fsdp", "fsdp", "logical", "mesh",
+             "shape", "use_tp")], _A12_TP),
     "serve/api.py": dict.fromkeys(
         ["warn_deprecated", "warn_deprecated(message=)",
          "warn_deprecated(stacklevel=)"], _SHIM),
@@ -134,25 +137,44 @@ EXCEPTIONS = {
         "ReservoirEngine.xla_schedule": _RENAME,
         **dict.fromkeys(
             ["donated_call", *_params_of("donated_call", "fn", "u", "x0b")],
-            _A9 + " (the helper mutes JAX's buffer-donation warning for "
-            "the single-device and sharded dispatch paths; PyTorch "
-            "writes the carry in place and warns about nothing)"),
+            _DONATE),
     },
-    "serve/scheduler.py": {
+    "serve/scheduler.py": dict.fromkeys(
+        ["AsyncReservoirServer(return_states=)",
+         "AsyncReservoirServer.submit(request=)",
+         "ContinuousBatcher(return_states=)",
+         "ContinuousBatcher.return_states", "QueuedRequest.as_result"],
+        _SHIM),
+}
+
+# names the port adds where the JAX package uses JAX's own machinery (a
+# departure, not a missing name): held to exist in the port only
+DEPARTURES = {
+    "launch/mesh.py": {
         **dict.fromkeys(
-            ["AsyncReservoirServer(return_states=)",
-             "AsyncReservoirServer.submit(request=)",
-             "ContinuousBatcher(return_states=)",
-             "ContinuousBatcher.return_states", "QueuedRequest.as_result"],
-            _SHIM),
+            ["DataMesh", "DataMesh.axis_names", "DataMesh.devices",
+             "DataMesh.shape"],
+            "for jax.sharding.Mesh: an ordered device tuple with axis "
+            "'data' in which a device may repeat, so N shards share one "
+            "card (the counterpart of --xla_force_host_platform_"
+            "device_count)"),
         **dict.fromkeys(
-            ["ContinuousBatcher(warm=)", "ContinuousBatcher.chunk_outputs",
-             "ContinuousBatcher.chunk_outputs(slot=)",
-             "ContinuousBatcher.remaining_inputs",
-             "ContinuousBatcher.remaining_inputs(slot=)",
-             "ContinuousBatcher.shard_of", "ContinuousBatcher.shard_of(slot=)",
-             "QueuedRequest.requeued"], _A9),
+            ["local_devices", "local_devices(device=)"],
+            "for jax.devices(): the visible CUDA devices (raises without "
+            "one) or [cpu]"),
     },
+    "dist/scheduler.py": {
+        "DistributedReservoirServer(devices=)":
+            "for len(jax.devices()): the ordered device pool the mesh "
+            "shrinks and grows within (a prefix of it at every width)",
+    },
+    "dist/engine.py": dict.fromkeys(
+        ["ShardedReservoirEngine.run_segment",
+         "ShardedReservoirEngine.run_segment(inputs=)",
+         "ShardedReservoirEngine.run_segment(x0=)",
+         "ShardedReservoirEngine.run_segment(shards=)"],
+        "for shard_map's all-shard program: the batcher names the shards "
+        "holding live slots, and an idle shard makes no launch"),
 }
 
 
@@ -211,6 +233,14 @@ def test_reference_public_names_exist_in_the_port(module):
 def test_every_exception_names_a_ported_module():
     assert set(EXCEPTIONS) <= set(MODULES)
     assert all(reason for ex in EXCEPTIONS.values() for reason in ex.values())
+
+
+@pytest.mark.parametrize("module", sorted(DEPARTURES))
+def test_departures_exist_in_the_port_only(module):
+    listed = set(DEPARTURES[module])
+    assert all(DEPARTURES[module].values())
+    assert listed <= public_names(PORT / module)
+    assert not listed & public_names(REF / module)
 
 
 def test_walk_sees_methods_fields_and_parameters(tmp_path):
