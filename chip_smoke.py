@@ -57,7 +57,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    a 1-shard server on the backlog and shrinking it as the tail drains,
    within the pool of 4; (e) ``ridge_fit_sharded`` over the 4 shards
    against ``ridge_fit`` (fitted values within RIDGE_TOL);
-7. ``serve_layer`` (run last): the rest of the serve layer at
+7. ``serve_layer`` (after the timing phases): the rest of the serve layer at
    LARGE_1024: (a) the ``"torch"`` backend against the ``"cuda"`` one (B2)
    at batch 16, T = 64 — int8 at LARGE_1024, fp32-dense at PAPER_BASELINE
    and the culled int8 schedule on a block-sparse dim-1024 matrix: states
@@ -72,6 +72,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    a B1 (``specialize=False``) model in one pool with a new version
    published mid-burst (zero drops, versions pinned, answers bit-exact
    against the pinned engines, B1 and B2 launched);
+10. ``lm_serve`` (run last, after every profile): the LM substrate's
+   serving path at mistral-nemo-12b's full width (40 layers, d_model 5120,
+   GQA 32/8 heads, 12,247,782,400 parameters, bf16, seeded random weights
+   drawn on the card): (1) the parameter count against the reference's;
+   (2) eight prompts (4 x 512, 2 x 1024, 2048, 4096 tokens) grouped by
+   ``PaddingBucketer`` into four exactly filled buckets, each prefilled
+   through ``make_prefill_step`` (the 4096 bucket on the chunked attention
+   path) and decoded for 32 greedy steps through ``make_decode_step``:
+   prefill ms and prompt tokens/s, decode ms per step and tokens/s (CUDA
+   events), each beside its bound from the ported roofline functions at
+   the H100's peaks, peak memory and ``ServeStats.render()``; (3) decode
+   == teacher forcing at 512 tokens (rtol = atol = 0.15, the same
+   argmax); (4) chunked == dense attention on layer 0's q/k/v of the
+   4096-token prompt; (5) ``quantize_tree`` on the card and the 512
+   bucket decoded from the int8 tree: ms per step beside bf16's and the
+   int8 bounds, the first step's logits against bf16's (correlation >
+   0.98).  No kernel of B1-B5 may launch on this path (the kernels line's
+   ``launches_lm_serve``);
 5. times each kernel per launch at the LARGE_1024 shape with CUDA events
    and the profiler, beside its plain twin, one PyTorch call computing the
    same product (and cuSPARSE for B4), and the least time the card could
@@ -124,6 +142,26 @@ RIDGE_LAM = 1.0
 
 # phase 3 serves its 24-request burst this many times (fresh server each)
 BURSTS = 5
+
+# lm_serve: mistral-nemo-12b at full width.  Its parameter count is the
+# JAX package's LM(cfg).param_count(), kept here because this script
+# cannot import JAX.
+LM_ARCH = "mistral-nemo-12b"
+LM_PARAMS = 12_247_782_400
+LM_LEN_BUCKETS = (512, 1024, 2048, 4096)
+LM_PROMPTS = (512,) * 4 + (1024,) * 2 + (2048, 4096)   # fill each bucket
+LM_DECODE_STEPS = 32
+# decode vs teacher forcing in bf16: the reference's own bound between its
+# two bf16 paths (tests/test_arch_smoke.py)
+LM_TF_TOL = 0.15
+# chunked vs dense attention in bf16, per element: the dense path rounds
+# each probability to bf16 before P.V (relative 2^-9, so at most 2^-9 *
+# max |v| on the output), and each path rounds its float32 output to bf16
+# once (half an ulp each: together up to 2^-7 * |o|)
+LM_ATTN_RTOL = 2.0 ** -7
+LM_ATTN_VTOL = 2.0 ** -9
+# int8 vs bf16 serving: the reference's criterion (tests/test_quantize.py)
+LM_INT8_CORR = 0.98
 
 # Published H100 SXM peaks (NVIDIA data sheet) used for the bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -189,6 +227,7 @@ class Smoke:
         self._readout = rollout_readout
         self.serve_launches: dict = {}
         self.sharded_launches: dict = {}
+        self.lm_launches: dict = {}
 
     def check(self, cond: bool, what: str) -> None:
         if not cond:
@@ -1059,6 +1098,285 @@ class Smoke:
               f"vs ridge_fit: fitted values max |diff| {d:.3g} (tol "
               f"{RIDGE_TOL}), weights {maxdiff(w_sh, w_one):.3g}")
 
+    # -- lm_serve ------------------------------------------------------------
+    def _kernel_counters(self) -> dict:
+        """Every kernel wrapper, by name (the standalone and the fused
+        readouts both under ``rollout_readout``)."""
+        from repro_torch.kernels.bcsr_matmul import bcsr_matmul as b4
+        from repro_torch.kernels.bitplane_gemv import bitplane_gemv as b3
+        from repro_torch.kernels.reservoir_step import reservoir_step as b5
+        return {**self._counted, "rollout_readout": self._readout,
+                "bitplane_gemv": b3.bitplane_gemv,
+                "bcsr_matmul": b4.bcsr_matmul,
+                "reservoir_step": b5.reservoir_step}
+
+    def _events(self, n):
+        return [self.torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+    def lm_serve(self):
+        """The LM substrate's serving path at mistral-nemo-12b's full width,
+        bf16, seeded random weights on the card: (1) the model and its
+        parameter count; (2) eight prompts grouped by the port's
+        ``PaddingBucketer`` into four exactly filled buckets, each prefilled
+        through ``make_prefill_step`` and decoded greedily through
+        ``make_decode_step``, timed by CUDA events beside the roofline
+        functions' bounds; (3) decode == teacher forcing at 512 tokens; (4)
+        chunked attention == dense on layer 0 of the 4096-token prompt; (5)
+        int8 frozen-weight serving of the 512 bucket against the bf16 path.
+        The path launches none of B1-B5 (checked)."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models.common import tree_leaves
+        from repro_torch.models.transformer import LM
+        counters = self._kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        self._readout.fused_launches = 0
+        cfg = get_config(LM_ARCH)
+        lm = LM(cfg, device=self.dev)
+        n = lm.param_count()
+        self.check(n == LM_PARAMS, f"{LM_ARCH} param_count {n:,} != the "
+                   f"reference's {LM_PARAMS:,}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = lm.init(torch.Generator(device=self.dev).manual_seed(0)
+                         ).params
+        torch.cuda.synchronize()
+        nbytes = sum(a.numel() * a.element_size() for a in tree_leaves(params))
+        self.check(lm.param_count(params) == LM_PARAMS,
+                   "initialized tree's parameter count")
+        print(f"(1) {LM_ARCH}: {n:,} parameters, {nbytes / 1e9:.3f} GB "
+              f"({cfg.dtype}), drawn on the card in "
+              f"{time.perf_counter() - t0:.2f} s; {cfg.n_layers} layers, "
+              f"d_model {cfg.d_model}, {cfg.n_heads} heads / "
+              f"{cfg.n_kv_heads} kv, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}")
+        first = self._lm_buckets(lm, params, n)
+        self._lm_teacher_forcing(lm, params, first["prompt"])
+        self._lm_chunked_attention(lm, params, first["long"])
+        del first["long"]
+        self._lm_int8(lm, params, first)
+        del params, first
+        torch.cuda.empty_cache()
+        made = {k: fn.launches for k, fn in counters.items()}
+        made["rollout_readout"] += self._readout.fused_launches
+        self.lm_launches = made
+        print(f"lm_serve launches of B1-B5 and the readout: {made}")
+        self.check(not any(made.values()), "the LM path launched a "
+                   "reservoir kernel")
+
+    def _lm_buckets(self, lm, params, n_params) -> dict:
+        """(2) Prefill and greedy decode of each bucket, beside its bound."""
+        torch = self.torch
+        from repro_torch.configs import ShapeSpec
+        from repro_torch.launch import roofline as rf
+        from repro_torch.launch.steps import (make_decode_step,
+                                              make_prefill_step)
+        from repro_torch.serve import (PaddingBucketer, RolloutRequest,
+                                       ServeStats)
+        cfg = lm.cfg
+        rng = np.random.default_rng(19)
+        reqs = [RolloutRequest(uid=i, inputs=rng.integers(
+                    0, cfg.vocab_size, (n, 1)).astype(np.int32))
+                for i, n in enumerate(LM_PROMPTS)]
+        bucketer = PaddingBucketer(len_buckets=LM_LEN_BUCKETS,
+                                   batch_buckets=(1, 2, 4, 8))
+        mbs = bucketer.group(reqs)
+        shapes = [mb.inputs.shape[:2] for mb in mbs]
+        self.check(shapes == [(4, 512), (2, 1024), (1, 2048), (1, 4096)]
+                   and all(mb.real_steps == mb.padded_steps for mb in mbs),
+                   f"buckets {shapes} filled exactly")
+        decode = make_decode_step(lm, None)
+        # warm-up of every bucket's shapes (library handles and plans, the
+        # allocator's first blocks): unwarmed, the 512 x 4 bucket's prefill
+        # measured 130 ms in one run on the H100 and 386 ms in another
+        for mb in mbs:
+            warm = torch.as_tensor(mb.inputs[:, :, 0], device=self.dev)
+            lg, c = make_prefill_step(lm, None, warm.shape[1] + 2)(
+                params, {"tokens": warm})
+            decode(params, c, lg.argmax(-1))
+            del lg, c
+        torch.cuda.synchronize()
+        stats = ServeStats()
+        first = {}
+        self.lm_times = {}
+        for mb in mbs:
+            bpad, tpad = mb.inputs.shape[:2]
+            toks = torch.as_tensor(mb.inputs[:, :, 0], device=self.dev).long()
+            prefill = make_prefill_step(lm, None, tpad + LM_DECODE_STEPS)
+            e = self._events(3)
+            e[0].record()
+            logits, caches = prefill(params, {"tokens": toks})
+            e[1].record()
+            tok = logits.argmax(-1)
+            out = [tok]
+            for step in range(LM_DECODE_STEPS):
+                if step == 0 and tpad == 512:
+                    first.update(tok=tok, prompt=toks[:1], prompt_batch=toks)
+                logits, caches = decode(params, caches, tok)
+                if step == 0 and tpad == 512:
+                    first["logits"] = logits.float()
+                tok = logits.argmax(-1)
+                out.append(tok)
+            e[2].record()
+            torch.cuda.synchronize()
+            if tpad == 4096:
+                first["long"] = toks
+            seq = torch.cat(out, dim=1)
+            self.check(bool(torch.isfinite(logits).all()) and seq.shape ==
+                       (bpad, LM_DECODE_STEPS + 1) and int(seq.min()) >= 0
+                       and int(seq.max()) < cfg.vocab_size,
+                       f"bucket {tpad} x {bpad}: finite logits, tokens")
+            self.check(int(caches["index"]) == tpad + LM_DECODE_STEPS,
+                       f"bucket {tpad}: cache index")
+            del caches, logits
+            pf_ms = e[0].elapsed_time(e[1])
+            dec_ms = e[1].elapsed_time(e[2]) / LM_DECODE_STEPS
+            stats.record_call(batch=bpad, steps=tpad, seconds=pf_ms / 1e3,
+                              real_steps=mb.real_steps)
+            stats.record_call(batch=bpad, steps=LM_DECODE_STEPS,
+                              seconds=dec_ms * LM_DECODE_STEPS / 1e3,
+                              real_steps=LM_DECODE_STEPS * len(mb.requests))
+            pshape = ShapeSpec("bucket", tpad, bpad, "prefill")
+            dshape = ShapeSpec("bucket", tpad + LM_DECODE_STEPS, bpad,
+                               "decode")
+            bounds = {}
+            for kind, shape in (("prefill", pshape), ("decode", dshape)):
+                t_c = rf.model_flops(cfg, shape, n_params) / rf.PEAK_FLOPS
+                t_m = rf.analytic_hbm_bytes(cfg, shape, n_params, n_params,
+                                            1) / rf.HBM_BW
+                bounds[kind] = (max(t_c, t_m) * 1e3,
+                                "FLOPs" if t_c >= t_m else "bytes")
+            self.lm_times[tpad] = dict(batch=bpad, prefill_ms=pf_ms,
+                                       decode_ms=dec_ms, bounds=bounds)
+            print(f"(2) bucket {tpad} x {bpad}: prefill {pf_ms:.2f} ms, "
+                  f"{bpad * tpad / pf_ms * 1e3:,.0f} prompt tokens/s (bound "
+                  f"{bounds['prefill'][0]:.2f} ms by "
+                  f"{bounds['prefill'][1]}); decode {dec_ms:.3f} ms/step, "
+                  f"{bpad / dec_ms * 1e3:,.1f} tokens/s (bound "
+                  f"{bounds['decode'][0]:.3f} ms by {bounds['decode'][1]}) "
+                  f"on {self.card}")
+        print(f"(2) peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+              f" GB; serve stats: {stats.render()}")
+        return first
+
+    def _lm_teacher_forcing(self, lm, params, prompt):
+        """(3) prefill(513) == prefill(512) + one decode_step, within the
+        reference's bf16 bound, with the same argmax."""
+        torch = self.torch
+        nxt = torch.randint(0, lm.cfg.vocab_size, (1, 1), device=self.dev,
+                            generator=torch.Generator(device=self.dev
+                                                      ).manual_seed(5))
+        full_toks = torch.cat([prompt, nxt], dim=1)
+        full, _ = lm.prefill(params, {"tokens": full_toks}, cache_len=513)
+        _, caches = lm.prefill(params, {"tokens": prompt}, cache_len=513)
+        inc, _ = lm.decode_step(params, caches, nxt)
+        a, b = inc.float(), full.float()
+        gap = maxdiff(a, b)
+        close = bool(torch.allclose(a, b, rtol=LM_TF_TOL, atol=LM_TF_TOL))
+        same = int(a.argmax()) == int(b.argmax())
+        self.check(close and same, f"decode != teacher forcing at 512: gap "
+                   f"{gap:.4g}, argmax {int(a.argmax())} vs {int(b.argmax())}")
+        print(f"(3) decode == teacher forcing at 512 tokens: max |gap| "
+              f"{gap:.4g} (rtol = atol = {LM_TF_TOL}), argmax equal {same}")
+
+    def _lm_chunked_attention(self, lm, params, toks):
+        """(4) The chunked online softmax against the dense path on layer
+        0's q/k/v of the 4096-token prompt."""
+        torch = self.torch
+        from repro_torch.models.attention import attention
+        from repro_torch.models.common import apply_norm, tree_map
+        from repro_torch.models.gqa import _project_qkv
+        cfg = lm.cfg
+        g0 = tree_map(lambda a: a[0], params["groups"]["b0"])
+        h = apply_norm(lm._embed(params, toks), g0["norm1"], cfg.norm)
+        pos = torch.arange(toks.shape[1], device=self.dev)[None, :]
+        q, k, v = _project_qkv(h, g0["attn"], cfg, pos)
+        e = self._events(3)
+        e[0].record()
+        chunked = attention(q, k, v)
+        e[1].record()
+        dense = attention(q, k, v, dense_threshold=toks.shape[1])
+        e[2].record()
+        torch.cuda.synchronize()
+        diff = (chunked.float() - dense.float()).abs()
+        atol = LM_ATTN_VTOL * float(v.float().abs().max())
+        within = bool((diff <= atol + LM_ATTN_RTOL * dense.float().abs()
+                       ).all())
+        gap = float(diff.max())
+        self.check(within and bool(torch.isfinite(chunked).all()),
+                   f"chunked attention vs dense at 4096: {gap:.4g}")
+        print(f"(4) chunked (q 512 x kv 1024) == dense attention on layer 0 "
+              f"at 4096 tokens: max |diff| {gap:.4g} (tol {atol:.4g} + "
+              f"2^-7 |o|); {e[0].elapsed_time(e[1]):.2f} ms chunked, "
+              f"{e[1].elapsed_time(e[2]):.2f} ms dense")
+
+    def _lm_int8(self, lm, params, first):
+        """(5) quantize_tree on the card, then the 512 bucket served from
+        the int8 tree; the first decode step's logits against the bf16
+        path's (the same fed token), correlation > LM_INT8_CORR."""
+        torch = self.torch
+        from repro_torch.configs import ShapeSpec
+        from repro_torch.launch import roofline as rf
+        from repro_torch.launch.steps import (make_decode_step,
+                                              make_prefill_step)
+        from repro_torch.models.common import tree_leaves
+        from repro_torch.models.quantize import quantize_tree
+        t0 = time.perf_counter()
+        qparams = quantize_tree(params)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        leaves = tree_leaves(qparams)
+        qbytes = sum(a.numel() * a.element_size() for a in leaves)
+        q_elems = sum(a.numel() for a in leaves if a.dtype == torch.int8)
+        n_q = sum(1 for a in leaves if a.dtype == torch.int8)
+        print(f"(5) quantize_tree on the card: {quant_s:.2f} s, {n_q} "
+              f"leaves int8, {qbytes / 1e9:.3f} GB in all")
+        bf16_ms = self.lm_times[512]["decode_ms"]
+        prompts = first["prompt_batch"]
+        bpad = prompts.shape[0]
+        prefill = make_prefill_step(lm, None, 512 + LM_DECODE_STEPS)
+        decode = make_decode_step(lm, None)
+        _, caches = prefill(qparams, {"tokens": prompts})
+        e = self._events(2)
+        tok = first["tok"]
+        e[0].record()
+        for step in range(LM_DECODE_STEPS):
+            logits, caches = decode(qparams, caches, tok)
+            if step == 0:
+                got = logits.float()
+            tok = logits.argmax(-1)
+        e[1].record()
+        torch.cuda.synchronize()
+        ms = e[0].elapsed_time(e[1]) / LM_DECODE_STEPS
+        a, b = got.flatten().double(), first["logits"].flatten().double()
+        corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+        self.check(corr > LM_INT8_CORR and bool(torch.isfinite(got).all()),
+                   f"int8 vs bf16 first decode step: correlation {corr:.5f}")
+        # bounds: the int8 weights read once, and the traffic of the
+        # expansion as written (per int8 element: the cast reads 1 B and
+        # writes 2, the scale product reads 2 and writes 2, the product
+        # reads 2; the embedding table's lookup reads only its rows)
+        cache = rf.kv_cache_bytes(lm.cfg, ShapeSpec(
+            "bucket", 512 + LM_DECODE_STEPS, bpad, "decode"))
+        table = lm.cfg.vocab_size * lm.cfg.d_model
+        ideal = (qbytes + cache) / rf.HBM_BW * 1e3
+        written = ((9 * q_elems - 2 * table + (qbytes - q_elems) + cache)
+                   / rf.HBM_BW * 1e3)
+        self.lm_times["int8"] = dict(decode_ms=ms, corr=corr, bound_ms=ideal,
+                                     written_bound_ms=written,
+                                     quantize_s=quant_s)
+        print(f"(5) int8 decode, bucket 512 x {bpad}: {ms:.3f} ms/step "
+              f"against bf16 {bf16_ms:.3f} ({ms / bf16_ms:.2f}x); bound "
+              f"{ideal:.3f} ms with the int8 weights read once, "
+              f"{written:.3f} ms for the expansion as written; first step's "
+              f"logits vs bf16 correlation {corr:.5f} (> {LM_INT8_CORR}) on "
+              f"{self.card}")
+        print(f"(5) peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+              " GB")
+        del qparams, caches, logits, got
+
+
     # -- phase 7 -------------------------------------------------------------
     def serve_layer(self):
         """The rest of the serve layer at LARGE_1024 on the card: the torch
@@ -1925,6 +2243,7 @@ class Smoke:
                 launches=self.launches[name],
                 launches_sharded=self.sharded_launches.get(name, 0),
                 launches_serve_layer=self.serve_launches.get(name, 0),
+                launches_lm_serve=self.lm_launches.get(name, 0),
                 max_abs_err=max(v for v in e.values() if v is not None),
                 **{f"max_abs_err_{m}": v for m, v in e.items()},
                 **self.kernels[name]))
@@ -1953,12 +2272,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smoke = Smoke(torch)
     t_all = time.perf_counter()
-    # serve_layer last: its profiles of the torch backend's many small
-    # launches must not come before the kernels' timing phases
+    # serve_layer after the kernels' timing phases (a profile taken after
+    # its profiles of the torch backend's many small launches came back
+    # empty), and lm_serve after every profile: serve_layer's first
+    # profile after lm_serve recorded no launch on the H100
     for phase in (smoke.build, smoke.twins, smoke.main_path,
                   smoke.baseline_twins, smoke.fixed_matrix, smoke.times,
                   smoke.fixed_times, smoke.autotune, smoke.sharded,
-                  smoke.serve_layer):
+                  smoke.serve_layer, smoke.lm_serve):
         t0 = time.perf_counter()
         print(f"== {phase.__name__}")
         try:

@@ -1,2 +1,2 @@
-"""Launch layer: the data mesh of sharded serving and the rollout roofline
-(the LM half comes with its configs)."""
+"""Launch layer: the data mesh of sharded serving, the LM prefill/decode
+step builders, and the roofline (the LM analytic model and the rollout)."""

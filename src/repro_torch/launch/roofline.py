@@ -1,7 +1,17 @@
-"""Roofline of the specialized reservoir rollout on one NVIDIA H100.
+"""Roofline on one NVIDIA H100: the LM substrate's analytic model and the
+specialized reservoir rollout.
 
-Two terms per rollout schedule, against the H100 SXM's published peaks
-(NVIDIA's data sheet, dense rates, at the full 700 W power limit):
+Peaks are the H100 SXM's published figures (NVIDIA's data sheet, dense
+rates, at the full 700 W power limit): 989 TFLOP/s bf16 on the tensor
+cores, 3.35 TB/s HBM, NVLink 4 at 450 GB/s per direction (18 links).
+
+The LM half (``model_flops``, ``kv_cache_bytes``, ``analytic_hbm_bytes``,
+``active_params``) is the JAX package's analytic model, unchanged: 2*N*D
+FLOPs for inference (6*N*D for training) and a documented napkin model of
+the HBM traffic per step.  The half of the JAX package's module that reads
+dry-run results (``cell_report`` and its tables) waits for ROADMAP A12f.
+
+Two terms per rollout schedule:
 
   compute = folded-tile MACs at the tensor-core int8 rate (1,979 TOP/s)
             or the CUDA-core fp32 rate (67 TFLOP/s), one MAC = 2 ops,
@@ -13,21 +23,24 @@ Two terms per rollout schedule, against the H100 SXM's published peaks
 
 The memory term follows ``rollout.cu``, not the JAX package's regime:
 the kernel repacks every band into per-block shares whatever the band
-budget, so the budget moves no byte.  The half of the JAX package's
-``launch/roofline.py`` that prices the LM substrate waits for the LM
-configs.
+budget, so the budget moves no byte.
 """
 
 from __future__ import annotations
 
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.core.costmodel import rollout_cost_features
 
-__all__ = ["DIGIT_BYTES", "HBM_BW", "PEAK_FP32_FLOPS", "PEAK_INT8_OPS",
-           "SHIFTADD_OPS", "rollout_roofline"]
+__all__ = ["DIGIT_BYTES", "HBM_BW", "LINK_BW", "PEAK_FLOPS",
+           "PEAK_FP32_FLOPS", "PEAK_INT8_OPS", "SHIFTADD_OPS",
+           "active_params", "analytic_hbm_bytes", "expert_params_per_layer",
+           "kv_cache_bytes", "model_flops", "rollout_roofline"]
 
+PEAK_FLOPS = 989e12       # bf16 tensor-core FLOP/s
 PEAK_INT8_OPS = 1979e12   # int8 tensor-core ops/s
 PEAK_FP32_FLOPS = 67e12   # fp32 FLOP/s outside the tensor cores
 HBM_BW = 3.35e12          # B/s
+LINK_BW = 450e9           # B/s, NVLink 4 per direction
 # rollout.cu adds each shift-add digit into a shared int32 accumulator with
 # one shared-memory atomic add: at most one per bank per clock, 32 per SM,
 # over 132 SMs at the 1.98 GHz boost clock (data sheet)
@@ -35,6 +48,87 @@ SHIFTADD_OPS = 32 * 132 * 1.98e9
 DIGIT_BYTES = 4           # one packed uint32 per digit in a block's share
 
 
+# ---------------------------------------------------------------------------
+# the LM substrate's analytic model (the JAX package's, unchanged)
+# ---------------------------------------------------------------------------
+def expert_params_per_layer(cfg: ModelConfig) -> int:
+    if cfg.moe is None:
+        return 0
+    return 3 * cfg.d_model * cfg.moe.d_expert
+
+
+def active_params(cfg: ModelConfig, total: int) -> int:
+    """Parameters touched per token (MoE: top_k + shared experts only)."""
+    if cfg.moe is None:
+        return total
+    per = expert_params_per_layer(cfg)
+    inactive = (cfg.moe.n_experts - cfg.moe.top_k) * per * cfg.n_layers
+    return total - inactive
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeSpec, n_active: int) -> float:
+    """6*N*D for training, 2*N*D for inference (D = tokens this step)."""
+    if shape.kind == "train":
+        return 6.0 * n_active * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return 2.0 * n_active * shape.global_batch * shape.seq_len
+    return 2.0 * n_active * shape.global_batch  # decode: one token
+
+
+def kv_cache_bytes(cfg: ModelConfig, shape: ShapeSpec) -> float:
+    """Global KV/state cache bytes at full context."""
+    b, s = shape.global_batch, shape.seq_len
+    per_layer = 0.0
+    for kind in cfg.block_pattern:
+        if kind == "attn":
+            per_layer += 2 * cfg.n_kv_heads * cfg.head_dim * s * 2.0
+        elif kind == "local":
+            w = min(cfg.window or s, s)
+            per_layer += 2 * cfg.n_kv_heads * cfg.head_dim * w * 2.0
+        elif kind == "mla":
+            per_layer += (cfg.mla.kv_lora + cfg.mla.rope_dim) * s * 2.0
+        elif kind == "rglru":
+            per_layer += (cfg.lru_dim * 4.0
+                          + (cfg.conv_width - 1) * cfg.lru_dim * 4.0)
+        elif kind in ("mlstm", "slstm"):
+            per_layer += (cfg.n_heads * (cfg.head_dim ** 2 + 2 * cfg.head_dim)
+                          * 4.0)
+    n_per_pattern = cfg.n_layers / max(len(cfg.block_pattern), 1)
+    return b * per_layer * n_per_pattern
+
+
+def analytic_hbm_bytes(cfg: ModelConfig, shape: ShapeSpec, n_total: int,
+                       n_active: int, n_dev: int,
+                       weight_bytes_per_param: float = 2.0) -> float:
+    """Per-device HBM traffic per step (documented napkin model).
+
+    train:  weights read fwd+bwd+remat-recompute (3x) + grad write (4B)
+            + AdamW m/v read+write (16B) + param write (2B)
+            + activation stream ~12 x tokens x d_model x layers x 2B
+    prefill: active weights read once + activation stream ~6x + cache write
+    decode:  active weights read once (every step!) + full cache read
+    """
+    toks_dev = shape.global_batch * shape.seq_len / n_dev
+    d, nl = cfg.d_model, cfg.n_layers
+    if shape.kind == "train":
+        p_dev = n_total / n_dev
+        w = p_dev * (3 * weight_bytes_per_param + 4 + 16 + 2)
+        acts = 12.0 * toks_dev * d * nl * 2.0
+        return w + acts
+    if shape.kind == "prefill":
+        p_dev = n_active / n_dev  # inactive experts untouched per token-block
+        acts = 6.0 * toks_dev * d * nl * 2.0
+        cache = kv_cache_bytes(cfg, shape) / n_dev
+        return p_dev * weight_bytes_per_param + acts + cache
+    # decode
+    p_dev = n_active / n_dev
+    cache = kv_cache_bytes(cfg, shape) / n_dev
+    return p_dev * weight_bytes_per_param + cache
+
+
+# ---------------------------------------------------------------------------
+# the specialized reservoir rollout
+# ---------------------------------------------------------------------------
 def rollout_roofline(summary: dict, block: int, batch: int,
                      steps: int = 1, *, resident: bool = True) -> dict:
     """Roofline view of one specialized rollout schedule on the H100:

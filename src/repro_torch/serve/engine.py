@@ -33,7 +33,6 @@ prediction path.  The request/response surface is the
 from __future__ import annotations
 
 import collections
-import contextlib
 import time
 import warnings
 from typing import Sequence
@@ -44,7 +43,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core.esn import ESNParams
 from repro_torch.core.sparse import int_matmul_exact
-from repro_torch.device import resolve_device
+from repro_torch.device import ieee_fp32, resolve_device
 from repro_torch.kernels.reservoir_rollout.ops import FusedRollout
 from repro_torch.kernels.reservoir_rollout.specialized import \
     SpecializedRollout
@@ -70,31 +69,6 @@ BACKENDS = ("auto", "torch", "cuda")
 # block 128, so they take the dense path; block-structured matrices take
 # the culled loop.  The JAX package's value, so both pick one schedule.
 DENSE_DISPATCH_DENSITY = 0.5
-
-
-@contextlib.contextmanager
-def _ieee_fp32(device: torch.device):
-    """fp32 products in IEEE fp32 on a CUDA device, whatever the caller set
-    (TF32 would round the operands to 10 mantissa bits).  The legacy
-    ``allow_tf32`` setter switches both of PyTorch's flags together, and
-    the ``fp32_precision`` getter reads the caller's state without
-    tripping PyTorch's check against mixing the two APIs."""
-    if device.type != "cuda":
-        yield
-        return
-    mm = torch.backends.cuda.matmul
-    old = getattr(mm, "fp32_precision", None)
-    old_legacy = mm.allow_tf32 if old is None else None
-    mm.allow_tf32 = False
-    try:
-        yield
-    finally:
-        if old is None:
-            mm.allow_tf32 = old_legacy
-        elif old == "tf32":
-            mm.allow_tf32 = True
-        else:
-            mm.fp32_precision = old
 
 
 class ReservoirEngine:
@@ -330,7 +304,7 @@ class ReservoirEngine:
                                and x0b.device == self.device):
                 raise ValueError("donate_state needs x0 as a contiguous "
                                  "float32 tensor on the engine's device")
-            with _ieee_fp32(self.device):
+            with ieee_fp32(self.device):
                 y, xf = self._torch_rollout(u, x0b, with_readout)
             if donate:
                 xf = x0b.copy_(xf)

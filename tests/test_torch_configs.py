@@ -1,0 +1,136 @@
+"""The port's LM configs and the roofline's LM half against the JAX package.
+
+Every registered architecture equal field by field (nested sub-configs
+included), ``reduced()``, ``list_archs()``, ``SHAPES`` and the
+``supports_shape`` matrix equal; the full-width parameter count of every
+dense architecture the port serves equal to the reference's
+``LM.param_count()`` (the port's counted on the ``meta`` device); the
+architectures whose blocks wait raise ``NotImplementedError`` naming their
+ROADMAP item; the roofline's LM functions equal for every arch x shape
+(the same Python arithmetic, so exactly), at the H100's peaks.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+import repro.configs as jcfg
+import repro.launch.roofline as jroof
+import repro_torch.configs as tcfg
+import repro_torch.launch.roofline as troof
+from repro.models.transformer import LM as JLM
+from repro_torch.models.transformer import LM
+
+ARCHS = jcfg.list_archs()
+DENSE = ["gemma-2b", "internvl2-76b", "mistral-nemo-12b", "qwen3-32b",
+         "stablelm-1.6b"]
+WAITS = {"deepseek-v2-236b": "A12b", "olmoe-1b-7b": "A12b",
+         "recurrentgemma-2b": "A12c", "xlstm-350m": "A12c",
+         "whisper-base": "A12d"}
+
+
+def test_archs_listed_alike():
+    assert tcfg.list_archs() == ARCHS
+    assert sorted(DENSE + list(WAITS)) == ARCHS
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_equal_field_by_field(arch):
+    ref, port = jcfg.get_config(arch), tcfg.get_config(arch)
+    assert ([f.name for f in dataclasses.fields(port)]
+            == [f.name for f in dataclasses.fields(ref)])
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert (port.n_groups, port.tail_pattern) == (ref.n_groups,
+                                                  ref.tail_pattern)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_reduced_equal(arch):
+    ref = jcfg.reduced(jcfg.get_config(arch))
+    port = tcfg.reduced(tcfg.get_config(arch))
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert (port.n_groups, port.tail_pattern) == (ref.n_groups,
+                                                  ref.tail_pattern)
+
+
+def test_replace_and_sub_configs_equal():
+    base = tcfg.get_config("mistral-nemo-12b")
+    assert base.replace(window=8).window == 8 and base.window is None
+    from repro.configs import base as jbase
+    from repro_torch.configs import base as tbase
+    for name in ("MoEConfig", "MLAConfig", "EncoderConfig"):
+        jc, tc = getattr(jbase, name), getattr(tbase, name)
+        assert ([(f.name, f.default) for f in dataclasses.fields(tc)]
+                == [(f.name, f.default) for f in dataclasses.fields(jc)])
+
+
+def test_shapes_equal():
+    assert list(tcfg.SHAPES) == list(jcfg.SHAPES)
+    for name, shape in jcfg.SHAPES.items():
+        assert dataclasses.asdict(tcfg.SHAPES[name]) == \
+            dataclasses.asdict(shape)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_supports_shape_matrix_equal(arch):
+    for name in jcfg.SHAPES:
+        assert tcfg.supports_shape(tcfg.get_config(arch),
+                                   tcfg.SHAPES[name]) == \
+            jcfg.supports_shape(jcfg.get_config(arch), jcfg.SHAPES[name])
+
+
+def test_unknown_arch_raises():
+    with pytest.raises(KeyError, match="unknown arch"):
+        tcfg.get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_full_width_param_count_equal(arch):
+    port = LM(tcfg.get_config(arch), device="cpu").param_count()
+    assert port == JLM(jcfg.get_config(arch)).param_count()
+
+
+def test_mistral_nemo_param_count_constant():
+    # the constant chip_smoke.py holds the full-width model to
+    assert LM(tcfg.get_config("mistral-nemo-12b"),
+              device="cpu").param_count() == 12_247_782_400
+
+
+@pytest.mark.parametrize("arch", sorted(WAITS))
+def test_waiting_archs_raise_naming_their_item(arch):
+    with pytest.raises(NotImplementedError, match=WAITS[arch]):
+        LM(tcfg.reduced(tcfg.get_config(arch)), device="cpu")
+
+
+def test_lm_defaults_to_the_card():
+    cfg = tcfg.reduced(tcfg.get_config("qwen3-32b"))
+    if torch.cuda.is_available():
+        assert LM(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            LM(cfg)
+
+
+@pytest.mark.parametrize("shape", list(jcfg.SHAPES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_roofline_lm_functions_equal(arch, shape):
+    rc, pc = jcfg.get_config(arch), tcfg.get_config(arch)
+    rs, ps = jcfg.SHAPES[shape], tcfg.SHAPES[shape]
+    total = 12_247_782_400
+    assert troof.expert_params_per_layer(pc) == \
+        jroof.expert_params_per_layer(rc)
+    n_act = troof.active_params(pc, total)
+    assert n_act == jroof.active_params(rc, total)
+    assert troof.model_flops(pc, ps, n_act) == jroof.model_flops(rc, rs,
+                                                                 n_act)
+    assert troof.kv_cache_bytes(pc, ps) == jroof.kv_cache_bytes(rc, rs)
+    for n_dev, wbytes in ((1, 2.0), (256, 2.0), (1, 1.0)):
+        assert troof.analytic_hbm_bytes(pc, ps, total, n_act, n_dev, wbytes) \
+            == jroof.analytic_hbm_bytes(rc, rs, total, n_act, n_dev, wbytes)
+
+
+def test_roofline_peaks_are_the_h100s():
+    assert troof.PEAK_FLOPS == 989e12       # bf16 dense, SXM data sheet
+    assert troof.HBM_BW == 3.35e12
+    assert troof.LINK_BW == 450e9           # NVLink 4, per direction

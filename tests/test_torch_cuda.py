@@ -784,3 +784,140 @@ def test_sharded_shrink_grow_and_shard_death_on_the_card(cuda):
     want = single.run()
     for i in range(len(inputs)):
         np.testing.assert_array_equal(srv.results[i].preds, want[i].preds)
+
+
+# -- the LM serving path on the card ------------------------------------------
+_LM_DENSE = ["gemma-2b", "internvl2-76b", "mistral-nemo-12b", "qwen3-32b",
+             "stablelm-1.6b"]
+# the reference's own bound between two of its bf16 paths
+# (tests/test_arch_smoke.py); float32 products in another order: 1e-4
+_LM_BF16_TOL = 0.15
+
+
+def _lm_pair(arch, dtype, cuda, **over):
+    """A reduced config's LM and params on the CPU, and both on the card."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import LM
+    cfg = reduced(get_config(arch)).replace(dtype=dtype, **over)
+    lm = LM(cfg, device="cpu")
+    params = lm.init(torch.Generator().manual_seed(1)).params
+    return (cfg, lm, params, LM(cfg, device=cuda),
+            tree_map(lambda a: a.to(cuda), params))
+
+
+def _lm_batch(cfg, b, s, device, seed=0):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                    (b, s)), device=device)}
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.as_tensor(rng.standard_normal(
+            (b, 4, cfg.d_model)).astype(np.float32), device=device)
+    return batch
+
+
+def _to(batch, device):
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", _LM_DENSE)
+def test_lm_fp32_on_card_matches_cpu(cuda, arch):
+    """float32 prefill and four greedy decode steps on the card against
+    the port on the CPU, with TF32 asked for by the caller (the LM keeps
+    IEEE fp32): logits within 1e-4, tokens equal."""
+    cfg, lm, params, glm, gparams = _lm_pair(arch, "float32", cuda)
+    batch = _lm_batch(cfg, 2, 10, "cpu")
+    mm = torch.backends.cuda.matmul
+    old = mm.allow_tf32
+    mm.allow_tf32 = True
+    try:
+        cl, cc = lm.prefill(params, batch, cache_len=16)
+        gl, gc = glm.prefill(gparams, _to(batch, cuda), cache_len=16)
+        for _ in range(4):
+            assert (gl - cl.to(cuda)).abs().max().item() <= 1e-4
+            tok = cl.argmax(-1)
+            assert torch.equal(gl.argmax(-1).cpu(), tok)
+            cl, cc = lm.decode_step(params, cc, tok)
+            gl, gc = glm.decode_step(gparams, gc, tok.to(cuda))
+        assert (gl - cl.to(cuda)).abs().max().item() <= 1e-4
+    finally:
+        mm.allow_tf32 = old
+    assert mm.allow_tf32 == old
+
+
+@pytest.mark.parametrize("arch", _LM_DENSE)
+def test_lm_bf16_on_card_finite_and_argmax_agrees(cuda, arch):
+    """bf16 on the card: finite logits within the bf16 bound of the CPU's,
+    and the same argmax wherever the CPU's top-two margin exceeds twice
+    the gap between the devices (a closer pair is a tie within noise)."""
+    cfg, lm, params, glm, gparams = _lm_pair(arch, "bfloat16", cuda)
+    batch = _lm_batch(cfg, 2, 12, "cpu", seed=1)
+    cl, cc = lm.prefill(params, batch, cache_len=16)
+    gl, gc = glm.prefill(gparams, _to(batch, cuda), cache_len=16)
+    nxt = batch["tokens"][:, :1]
+    cl2, _ = lm.decode_step(params, cc, nxt)
+    gl2, _ = glm.decode_step(gparams, gc, nxt.to(cuda))
+    for c, g in ((cl, gl), (cl2, gl2)):
+        g = g.float().cpu()
+        c = c.float()
+        assert torch.isfinite(g).all()
+        gap = (g - c).abs().max().item()
+        assert gap <= _LM_BF16_TOL * (1 + c.abs().max().item())
+        top2 = c.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 2 * gap
+        assert torch.equal(g.argmax(-1)[clear], c.argmax(-1)[clear])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_int8_on_card_matches_cpu(cuda, dtype):
+    """quantize_tree on the card == on the CPU (q and scale exactly), and
+    int8 serving on the card against the CPU's int8 serving."""
+    from repro_torch.models.quantize import quantize_tree
+    cfg, lm, params, glm, gparams = _lm_pair(
+        "mistral-nemo-12b", dtype, cuda, n_layers=2, d_model=1024,
+        n_heads=8, n_kv_heads=2, head_dim=64, d_ff=512, vocab_size=1024)
+    cq, gq = quantize_tree(params), quantize_tree(gparams)
+    for name in ("embed", "lm_head"):
+        assert torch.equal(gq[name]["q"].cpu(), cq[name]["q"])
+        assert torch.equal(gq[name]["scale"].cpu(), cq[name]["scale"])
+    w = "w_up"
+    assert torch.equal(gq["groups"]["b0"]["mlp"][w]["q"].cpu(),
+                       cq["groups"]["b0"]["mlp"][w]["q"])
+    batch = _lm_batch(cfg, 2, 8, "cpu", seed=2)
+    cl, cc = lm.prefill(cq, batch, cache_len=10)
+    gl, gc = glm.prefill(gq, _to(batch, cuda), cache_len=10)
+    nxt = batch["tokens"][:, :1]
+    cl2, _ = lm.decode_step(cq, cc, nxt)
+    gl2, _ = glm.decode_step(gq, gc, nxt.to(cuda))
+    tol = 1e-4 if dtype == "float32" else _LM_BF16_TOL
+    for c, g in ((cl, gl), (cl2, gl2)):
+        assert torch.isfinite(g.float()).all()
+        assert (g.float().cpu() - c.float()).abs().max().item() <= \
+            tol * (1 + c.float().abs().max().item())
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_lm_decode_step_never_syncs(cuda, quantized):
+    """A decode step (and its greedy argmax) queues its work without one
+    host-device synchronisation: the position is a device tensor."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.quantize import quantize_tree
+    over = dict(n_layers=2, d_model=1024, n_heads=8, n_kv_heads=2,
+                head_dim=64, d_ff=512, vocab_size=1024) if quantized else {}
+    cfg, _, _, glm, gparams = _lm_pair("mistral-nemo-12b", "bfloat16",
+                                       cuda, **over)
+    if quantized:
+        gparams = quantize_tree(gparams)
+    prefill = make_prefill_step(glm, None, 12)
+    decode = make_decode_step(glm, None)
+    logits, caches = prefill(gparams, _lm_batch(cfg, 2, 8, cuda))
+    tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            logits, caches = decode(gparams, caches, tok)
+            tok = logits.argmax(-1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(caches["index"]) == 11
