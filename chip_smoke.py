@@ -90,6 +90,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    int8 bounds, the first step's logits against bf16's (correlation >
    0.98).  No kernel of B1-B5 may launch on this path (the kernels line's
    ``launches_lm_serve``);
+11. ``lm_blocks`` (after ``lm_serve``, unprofiled for the same reason):
+   the rest of the LM substrate at full width, bf16, seeded random weights
+   drawn on the card, one model at a time, each parameter count held to
+   the reference's: (a) olmoe-1b-7b (16 layers, 64 experts top-8,
+   6,919,100,416 parameters) over lm_serve's four buckets, each time beside
+   two bounds (the roofline's active parameters; every parameter read, as
+   the reference's capacity buffer reads every expert), the share of
+   routed assignments dropped by capacity, decode == teacher forcing on a
+   copy whose capacity covers every assignment, and int8 serving of the
+   512 bucket (correlation > 0.98); (b) deepseek-v2-236b with n_layers 60
+   -> 4 (MLA + 160 experts top-6 + 2 shared, 16,937,047,040 parameters),
+   buckets 512 x 4 and 4096 x 1, the same checks through the absorbed MLA
+   decode, and the latent cache's bytes per token; (c) recurrentgemma-2b
+   and xlstm-350m (512 x 4) and whisper-base (448 x 4 over 1500 stub
+   frames): prefill, decode and teacher forcing, and one sLSTM layer's
+   prefill beside one mLSTM layer's.  No kernel of B1-B5 may launch
+   (``launches_lm_blocks``);
 5. times each kernel per launch at the LARGE_1024 shape with CUDA events
    and the profiler, beside its plain twin, one PyTorch call computing the
    same product (and cuSPARSE for B4), and the least time the card could
@@ -106,6 +123,7 @@ checkout.  The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -163,6 +181,21 @@ LM_ATTN_VTOL = 2.0 ** -9
 # int8 vs bf16 serving: the reference's criterion (tests/test_quantize.py)
 LM_INT8_CORR = 0.98
 
+# lm_blocks: the MoE, MLA, recurrent and enc-dec configs at full width.
+# Each parameter count is the JAX package's LM(cfg).param_count() (for
+# deepseek with n_layers 60 -> 4), kept here because this script cannot
+# import JAX.
+BLOCKS_PARAMS = {"olmoe-1b-7b": 6_919_100_416,
+                 "deepseek-v2-236b": 16_937_047_040,
+                 "recurrentgemma-2b": 2_894_574_080,
+                 "xlstm-350m": 183_835_792,
+                 "whisper-base": 71_395_840}
+# one card holds about 4 of deepseek-v2-236b's 60 layers (3.97 B
+# parameters each) beside its embeddings: reduced n_layers 60 -> 4
+DEEPSEEK_LAYERS = 4
+# whisper's published text context (n_text_ctx) and its 1500 frames
+WHISPER_TEXT_CTX = 448
+
 # Published H100 SXM peaks (NVIDIA data sheet) used for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -201,6 +234,17 @@ def gpu_name_power() -> str:
         return "nvidia-smi unavailable"
 
 
+def _lm_bound(rf, cfg, shape, n_params, n_act, n_read):
+    """(ms, what bounds it) for one LM step from the ported roofline
+    functions at the H100's peaks: the FLOPs of ``n_act`` parameters per
+    token, the bytes of ``n_read`` parameters read once (``n_act`` is the
+    roofline's own bound; ``n_read = n_params`` prices a MoE that reads
+    every expert, as the reference's capacity buffer does)."""
+    t_c = rf.model_flops(cfg, shape, n_act) / rf.PEAK_FLOPS
+    t_m = rf.analytic_hbm_bytes(cfg, shape, n_params, n_read, 1) / rf.HBM_BW
+    return (max(t_c, t_m) * 1e3, "FLOPs" if t_c >= t_m else "bytes")
+
+
 def maxdiff(a, b) -> float:
     if a.dtype.is_floating_point or b.dtype.is_floating_point:
         return float((a.float() - b.float()).abs().max().item())
@@ -228,6 +272,7 @@ class Smoke:
         self.serve_launches: dict = {}
         self.sharded_launches: dict = {}
         self.lm_launches: dict = {}
+        self.blocks_launches: dict = {}
 
     def check(self, cond: bool, what: str) -> None:
         if not cond:
@@ -1165,8 +1210,13 @@ class Smoke:
         self.check(not any(made.values()), "the LM path launched a "
                    "reservoir kernel")
 
-    def _lm_buckets(self, lm, params, n_params) -> dict:
-        """(2) Prefill and greedy decode of each bucket, beside its bound."""
+    def _lm_buckets(self, lm, params, n_params, prompts=LM_PROMPTS,
+                    len_buckets=LM_LEN_BUCKETS, extra=None,
+                    tag="(2)") -> dict:
+        """(2) Prefill and greedy decode of each bucket, beside its bound:
+        the ported roofline's, which counts a MoE's active parameters, and
+        for a MoE also the bound with every parameter read.  ``extra(b)``
+        gives a bucket's other inputs (whisper's frames)."""
         torch = self.torch
         from repro_torch.configs import ShapeSpec
         from repro_torch.launch import roofline as rf
@@ -1178,14 +1228,16 @@ class Smoke:
         rng = np.random.default_rng(19)
         reqs = [RolloutRequest(uid=i, inputs=rng.integers(
                     0, cfg.vocab_size, (n, 1)).astype(np.int32))
-                for i, n in enumerate(LM_PROMPTS)]
-        bucketer = PaddingBucketer(len_buckets=LM_LEN_BUCKETS,
+                for i, n in enumerate(prompts)]
+        bucketer = PaddingBucketer(len_buckets=len_buckets,
                                    batch_buckets=(1, 2, 4, 8))
         mbs = bucketer.group(reqs)
         shapes = [mb.inputs.shape[:2] for mb in mbs]
-        self.check(shapes == [(4, 512), (2, 1024), (1, 2048), (1, 4096)]
+        want = [(prompts.count(n), n) for n in len_buckets]
+        self.check(shapes == want
                    and all(mb.real_steps == mb.padded_steps for mb in mbs),
                    f"buckets {shapes} filled exactly")
+        more = extra or (lambda b: {})
         decode = make_decode_step(lm, None)
         # warm-up of every bucket's shapes (library handles and plans, the
         # allocator's first blocks): unwarmed, the 512 x 4 bucket's prefill
@@ -1193,28 +1245,31 @@ class Smoke:
         for mb in mbs:
             warm = torch.as_tensor(mb.inputs[:, :, 0], device=self.dev)
             lg, c = make_prefill_step(lm, None, warm.shape[1] + 2)(
-                params, {"tokens": warm})
+                params, {"tokens": warm, **more(warm.shape[0])})
             decode(params, c, lg.argmax(-1))
             del lg, c
         torch.cuda.synchronize()
         stats = ServeStats()
         first = {}
         self.lm_times = {}
+        n_act = rf.active_params(cfg, n_params)
         for mb in mbs:
             bpad, tpad = mb.inputs.shape[:2]
             toks = torch.as_tensor(mb.inputs[:, :, 0], device=self.dev).long()
+            batch = {"tokens": toks, **more(bpad)}
             prefill = make_prefill_step(lm, None, tpad + LM_DECODE_STEPS)
             e = self._events(3)
             e[0].record()
-            logits, caches = prefill(params, {"tokens": toks})
+            logits, caches = prefill(params, batch)
             e[1].record()
             tok = logits.argmax(-1)
             out = [tok]
             for step in range(LM_DECODE_STEPS):
-                if step == 0 and tpad == 512:
-                    first.update(tok=tok, prompt=toks[:1], prompt_batch=toks)
+                if step == 0 and tpad == len_buckets[0]:
+                    first.update(tok=tok, prompt=toks[:1], prompt_batch=toks,
+                                 batch=batch)
                 logits, caches = decode(params, caches, tok)
-                if step == 0 and tpad == 512:
+                if step == 0 and tpad == len_buckets[0]:
                     first["logits"] = logits.float()
                 tok = logits.argmax(-1)
                 out.append(tok)
@@ -1240,45 +1295,94 @@ class Smoke:
             pshape = ShapeSpec("bucket", tpad, bpad, "prefill")
             dshape = ShapeSpec("bucket", tpad + LM_DECODE_STEPS, bpad,
                                "decode")
-            bounds = {}
+            bounds, every = {}, {}
             for kind, shape in (("prefill", pshape), ("decode", dshape)):
-                t_c = rf.model_flops(cfg, shape, n_params) / rf.PEAK_FLOPS
-                t_m = rf.analytic_hbm_bytes(cfg, shape, n_params, n_params,
-                                            1) / rf.HBM_BW
-                bounds[kind] = (max(t_c, t_m) * 1e3,
-                                "FLOPs" if t_c >= t_m else "bytes")
+                bounds[kind] = _lm_bound(rf, cfg, shape, n_params, n_act,
+                                         n_act)
+                every[kind] = _lm_bound(rf, cfg, shape, n_params, n_act,
+                                        n_params)
             self.lm_times[tpad] = dict(batch=bpad, prefill_ms=pf_ms,
-                                       decode_ms=dec_ms, bounds=bounds)
-            print(f"(2) bucket {tpad} x {bpad}: prefill {pf_ms:.2f} ms, "
+                                       decode_ms=dec_ms, bounds=bounds,
+                                       bounds_all_weights=every)
+            all_w = ""
+            if n_act != n_params:
+                all_w = (f"; every weight read: prefill "
+                         f"{every['prefill'][0]:.2f} ms, decode "
+                         f"{every['decode'][0]:.3f} ms by "
+                         f"{every['decode'][1]}")
+            print(f"{tag} bucket {tpad} x {bpad}: prefill {pf_ms:.2f} ms, "
                   f"{bpad * tpad / pf_ms * 1e3:,.0f} prompt tokens/s (bound "
                   f"{bounds['prefill'][0]:.2f} ms by "
                   f"{bounds['prefill'][1]}); decode {dec_ms:.3f} ms/step, "
                   f"{bpad / dec_ms * 1e3:,.1f} tokens/s (bound "
-                  f"{bounds['decode'][0]:.3f} ms by {bounds['decode'][1]}) "
-                  f"on {self.card}")
-        print(f"(2) peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
-              f" GB; serve stats: {stats.render()}")
+                  f"{bounds['decode'][0]:.3f} ms by {bounds['decode'][1]}"
+                  f"{all_w}) on {self.card}")
+        print(f"{tag} peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; serve "
+              f"stats: {stats.render()}")
         return first
 
-    def _lm_teacher_forcing(self, lm, params, prompt):
-        """(3) prefill(513) == prefill(512) + one decode_step, within the
-        reference's bf16 bound, with the same argmax."""
+    def _lm_teacher_forcing(self, lm, params, prompt, extra=None,
+                            tag="(3)", check=True) -> float:
+        """(3) prefill(S + 1) == prefill(S) + one decode_step, within the
+        reference's bf16 bound, with the same argmax; returns the gap.  A
+        MoE also prints in how many layers the last token's top-k experts
+        differ between the two paths.  ``check=False`` measures only."""
         torch = self.torch
+        s = prompt.shape[1]
+        more = extra or {}
         nxt = torch.randint(0, lm.cfg.vocab_size, (1, 1), device=self.dev,
                             generator=torch.Generator(device=self.dev
                                                       ).manual_seed(5))
         full_toks = torch.cat([prompt, nxt], dim=1)
-        full, _ = lm.prefill(params, {"tokens": full_toks}, cache_len=513)
-        _, caches = lm.prefill(params, {"tokens": prompt}, cache_len=513)
-        inc, _ = lm.decode_step(params, caches, nxt)
+        with self._routes() as (seen, route):
+            full, _ = lm.prefill(params, {"tokens": full_toks, **more},
+                                 cache_len=s + 1)
+            n_full = len(seen)
+            _, caches = lm.prefill(params, {"tokens": prompt, **more},
+                                   cache_len=s + 1)
+            n_part = len(seen)
+            inc, _ = lm.decode_step(params, caches, nxt)
         a, b = inc.float(), full.float()
         gap = maxdiff(a, b)
         close = bool(torch.allclose(a, b, rtol=LM_TF_TOL, atol=LM_TF_TOL))
         same = int(a.argmax()) == int(b.argmax())
-        self.check(close and same, f"decode != teacher forcing at 512: gap "
-                   f"{gap:.4g}, argmax {int(a.argmax())} vs {int(b.argmax())}")
-        print(f"(3) decode == teacher forcing at 512 tokens: max |gap| "
-              f"{gap:.4g} (rtol = atol = {LM_TF_TOL}), argmax equal {same}")
+        if check:
+            self.check(close and same, f"{lm.cfg.name}: decode != teacher "
+                       f"forcing at {s}: gap {gap:.4g}, argmax "
+                       f"{int(a.argmax())} vs {int(b.argmax())}")
+        flips = ""
+        if lm.cfg.moe is not None:
+            m, n = lm.cfg.moe, 0
+            for (xf, wf), (xd, wd) in zip(seen[:n_full], seen[n_part:]):
+                top_f = route(xf[-1:], wf, m, aux=False)[0].sort().values
+                top_d = route(xd, wd, m, aux=False)[0].sort().values
+                n += int(not torch.equal(top_f, top_d))
+            flips = (f"; the last token's top-{m.top_k} experts differ in "
+                     f"{n} of {n_full} layers")
+        print(f"{tag} {lm.cfg.name}: decode {'==' if check else 'vs'} "
+              f"teacher forcing at {s} tokens: max |gap| {gap:.4g} (rtol = "
+              f"atol = {LM_TF_TOL}{'' if check else ', not checked'}), "
+              f"argmax equal {same}{flips}")
+        return gap
+
+    @contextlib.contextmanager
+    def _routes(self):
+        """Record each ``moe._route`` call's (normed input, router) while
+        inside (instrumentation of this script: the package counts
+        nothing); yields (the records, the unwrapped ``_route``)."""
+        from repro_torch.models import moe as moe_lib
+        route, seen = moe_lib._route, []
+
+        def spy(x, router_w, m, aux=True):
+            seen.append((x, router_w))
+            return route(x, router_w, m, aux)
+
+        moe_lib._route = spy
+        try:
+            yield seen, route
+        finally:
+            moe_lib._route = route
 
     def _lm_chunked_attention(self, lm, params, toks):
         """(4) The chunked online softmax against the dense path on layer
@@ -1311,7 +1415,7 @@ class Smoke:
               f"2^-7 |o|); {e[0].elapsed_time(e[1]):.2f} ms chunked, "
               f"{e[1].elapsed_time(e[2]):.2f} ms dense")
 
-    def _lm_int8(self, lm, params, first):
+    def _lm_int8(self, lm, params, first, tag="(5)"):
         """(5) quantize_tree on the card, then the 512 bucket served from
         the int8 tree; the first decode step's logits against the bf16
         path's (the same fed token), correlation > LM_INT8_CORR."""
@@ -1330,7 +1434,7 @@ class Smoke:
         qbytes = sum(a.numel() * a.element_size() for a in leaves)
         q_elems = sum(a.numel() for a in leaves if a.dtype == torch.int8)
         n_q = sum(1 for a in leaves if a.dtype == torch.int8)
-        print(f"(5) quantize_tree on the card: {quant_s:.2f} s, {n_q} "
+        print(f"{tag} quantize_tree on the card: {quant_s:.2f} s, {n_q} "
               f"leaves int8, {qbytes / 1e9:.3f} GB in all")
         bf16_ms = self.lm_times[512]["decode_ms"]
         prompts = first["prompt_batch"]
@@ -1366,16 +1470,237 @@ class Smoke:
         self.lm_times["int8"] = dict(decode_ms=ms, corr=corr, bound_ms=ideal,
                                      written_bound_ms=written,
                                      quantize_s=quant_s)
-        print(f"(5) int8 decode, bucket 512 x {bpad}: {ms:.3f} ms/step "
+        print(f"{tag} int8 decode, bucket 512 x {bpad}: {ms:.3f} ms/step "
               f"against bf16 {bf16_ms:.3f} ({ms / bf16_ms:.2f}x); bound "
               f"{ideal:.3f} ms with the int8 weights read once, "
               f"{written:.3f} ms for the expansion as written; first step's "
               f"logits vs bf16 correlation {corr:.5f} (> {LM_INT8_CORR}) on "
               f"{self.card}")
-        print(f"(5) peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
-              " GB")
+        print(f"{tag} peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         del qparams, caches, logits, got
 
+
+    # -- lm_blocks -----------------------------------------------------------
+    def lm_blocks(self):
+        """The rest of the LM substrate at full width, bf16, seeded random
+        weights drawn on the card, one model at a time: (a) olmoe-1b-7b
+        (MoE); (b) deepseek-v2-236b with its depth cut (MLA + MoE); (c)
+        recurrentgemma-2b, xlstm-350m and whisper-base.  Each: its
+        parameter count against the reference's, prefill and greedy decode
+        per bucket beside the roofline's bounds, decode == teacher forcing;
+        the MoE configs also the share of assignments dropped by capacity,
+        olmoe its int8 serving.  The path launches none of B1-B5."""
+        torch = self.torch
+        counters = self._kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        self._readout.fused_launches = 0
+        print(f"lm_blocks on {self.card}")
+        self.blocks = {}
+        self._lm_olmoe()
+        self._lm_deepseek()
+        for arch in ("recurrentgemma-2b", "xlstm-350m", "whisper-base"):
+            self._lm_recurrent_or_encdec(arch)
+        made = {k: fn.launches for k, fn in counters.items()}
+        made["rollout_readout"] += self._readout.fused_launches
+        self.blocks_launches = made
+        print(f"lm_blocks launches of B1-B5 and the readout: {made}")
+        self.check(not any(made.values()), "the LM blocks launched a "
+                   "reservoir kernel")
+
+    def _lm_load(self, arch, tag, **over):
+        """A full-width config's LM and its bf16 parameters drawn on the
+        card, the count held to the reference's."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models.common import tree_leaves
+        from repro_torch.models.transformer import LM
+        cfg = get_config(arch).replace(**over)
+        lm = LM(cfg, device=self.dev)
+        n = lm.param_count()
+        self.check(n == BLOCKS_PARAMS[arch], f"{arch} param_count {n:,} != "
+                   f"the reference's {BLOCKS_PARAMS[arch]:,}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = lm.init(torch.Generator(device=self.dev).manual_seed(0)
+                         ).params
+        torch.cuda.synchronize()
+        nbytes = sum(a.numel() * a.element_size() for a in tree_leaves(params))
+        cut = (f"; reduced: n_layers {get_config(arch).n_layers} -> "
+               f"{cfg.n_layers}" if over else "")
+        print(f"{tag} {arch}: {n:,} parameters, {nbytes / 1e9:.3f} GB "
+              f"({cfg.dtype}), drawn on the card in "
+              f"{time.perf_counter() - t0:.2f} s (peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB); "
+              f"{cfg.n_layers} layers {cfg.block_pattern}, d_model "
+              f"{cfg.d_model}{cut}")
+        return lm, params, n
+
+    def _lm_full_capacity(self, lm, s, tag):
+        """The same model with capacity_factor = n_experts / top_k: every
+        expert can take every token, so a prefill of ``s + 1`` tokens and
+        one of ``s`` plus a decode step route alike (the reference's
+        ``reduced()`` sets it so for the same reason)."""
+        from repro_torch.models.transformer import LM
+        m = lm.cfg.moe
+        cap = lambda t: max(int(np.ceil(t * m.top_k * m.capacity_factor
+                                        / m.n_experts)), 1)
+        print(f"{tag} teacher forcing on a copy with capacity_factor = "
+              f"{m.n_experts} / {m.top_k}: at {m.capacity_factor} a "
+              f"{s + 1}-token prefill (capacity {cap(s + 1)} per expert) "
+              f"and a 1-token decode step (capacity {cap(1)}) keep "
+              f"different assignments")
+        return LM(lm.cfg.replace(moe=dataclasses.replace(
+            m, capacity_factor=m.n_experts / m.top_k)), device=self.dev)
+
+    def _lm_olmoe(self):
+        torch = self.torch
+        arch = "olmoe-1b-7b"
+        lm, params, n = self._lm_load(arch, "(a)")
+        first = self._lm_buckets(lm, params, n, tag="(a)")
+        self.blocks[arch] = self.lm_times
+        self._moe_drops(lm, params, first, "(a)")
+        self.lm_times["tf_gap"] = self._lm_teacher_forcing(
+            self._lm_full_capacity(lm, first["prompt"].shape[1], "(a)"),
+            params, first["prompt"], tag="(a)")
+        self.lm_times["tf_gap_own_capacity"] = self._lm_teacher_forcing(
+            lm, params, first["prompt"], tag="(a)", check=False)
+        self._lm_int8(lm, params, first, tag="(a)")
+        del params, first
+        torch.cuda.empty_cache()
+
+    def _lm_deepseek(self):
+        torch = self.torch
+        from repro_torch.models import mla as mla_lib
+        arch = "deepseek-v2-236b"
+        lm, params, n = self._lm_load(arch, "(b)", n_layers=DEEPSEEK_LAYERS)
+        first = self._lm_buckets(lm, params, n, prompts=(512,) * 4 + (4096,),
+                                 len_buckets=(512, 4096), tag="(b)")
+        self.blocks[arch] = self.lm_times
+        self._moe_drops(lm, params, first, "(b)")
+        self.lm_times["tf_gap"] = self._lm_teacher_forcing(
+            self._lm_full_capacity(lm, first["prompt"].shape[1], "(b)"),
+            params, first["prompt"], tag="(b)")
+        self.lm_times["tf_gap_own_capacity"] = self._lm_teacher_forcing(
+            lm, params, first["prompt"], tag="(b)", check=False)
+        cfg, m = lm.cfg, lm.cfg.mla
+        c = mla_lib.init_cache(1, 1, cfg, lm.dtype, device=self.dev)
+        latent = sum(c[k].numel() * c[k].element_size()
+                     for k in ("c_kv", "k_rope"))
+        mha = cfg.n_heads * (m.nope_dim + m.rope_dim + m.v_dim) * 2
+        self.check(latent == (m.kv_lora + m.rope_dim) * 2,
+                   "MLA latent cache bytes per token")
+        print(f"(b) latent cache: {latent:,} B per token per layer "
+              f"((kv_lora {m.kv_lora} + rope {m.rope_dim}) x 2 B) against "
+              f"{mha:,} B for a cache of the decompressed keys and values "
+              f"({cfg.n_heads} heads x (k {m.nope_dim + m.rope_dim} + v "
+              f"{m.v_dim}) x 2 B): {mha / latent:.1f}x smaller")
+        del params, first, c
+        torch.cuda.empty_cache()
+
+    def _lm_recurrent_or_encdec(self, arch):
+        torch = self.torch
+        lm, params, n = self._lm_load(arch, "(c)")
+        cfg = lm.cfg
+        extra, more = None, None
+        prompts = (512,) * 4
+        if cfg.encoder is not None:
+            # stub frame embeddings (the conv frontend is stubbed in both
+            # packages), 1500 per request, and Whisper's text context
+            frames = torch.randn((4, cfg.encoder.seq_len, cfg.d_model),
+                                 generator=torch.Generator(
+                                     device=self.dev).manual_seed(7),
+                                 device=self.dev, dtype=lm.dtype)
+            extra = lambda b: {"frames": frames[:b]}
+            more = {"frames": frames[:1]}
+            prompts = (WHISPER_TEXT_CTX,) * 4
+        first = self._lm_buckets(lm, params, n, prompts=prompts,
+                                 len_buckets=(prompts[0],), extra=extra,
+                                 tag="(c)")
+        self.blocks[arch] = self.lm_times
+        prompt = first["prompt"]
+        if "mlstm" in cfg.block_pattern:
+            # prefill(S + 1) needs S + 1 to be a multiple of the mLSTM chunk
+            # (256) or below it: 255 + 1
+            prompt = prompt[:, :255]
+        self.lm_times["tf_gap"] = self._lm_teacher_forcing(
+            lm, params, prompt, more, tag="(c)")
+        if "slstm" in cfg.block_pattern:
+            self._slstm_prefill(lm, params, first["prompt_batch"])
+        del params, first
+        torch.cuda.empty_cache()
+
+    def _slstm_prefill(self, lm, params, toks):
+        """(c) One sLSTM layer's prefill (a Python loop over the 512
+        steps, as the reference's lax.scan) beside one mLSTM layer's
+        (chunkwise, 2 chunks of 256), on layer 0's normed embeddings."""
+        torch = self.torch
+        from repro_torch.device import ieee_fp32
+        from repro_torch.models import xlstm as xl
+        from repro_torch.models.common import apply_norm, tree_map
+        cfg = lm.cfg
+        g0 = tree_map(lambda a: a[0], params["groups"])
+        kinds = {k: f"b{i}" for i, k in enumerate(cfg.block_pattern)}
+        with ieee_fp32(self.dev):
+            h = apply_norm(lm._embed(params, toks),
+                           g0[kinds["slstm"]]["norm1"], cfg.norm)
+            xl.slstm_forward(h, g0[kinds["slstm"]]["mixer"], cfg)  # warm
+            e = self._events(3)
+            e[0].record()
+            xl.slstm_forward(h, g0[kinds["slstm"]]["mixer"], cfg)
+            e[1].record()
+            xl.mlstm_chunk_forward(h, g0[kinds["mlstm"]]["mixer"], cfg)
+            e[2].record()
+        torch.cuda.synchronize()
+        s_ms, m_ms = e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2])
+        n_s = cfg.n_layers // len(cfg.block_pattern)
+        self.lm_times["slstm_layer_ms"] = s_ms
+        self.lm_times["mlstm_layer_ms"] = m_ms
+        s = toks.shape[1]
+        print(f"(c) xlstm-350m prefill of {s} x {toks.shape[0]}: one sLSTM "
+              f"layer {s_ms:.2f} ms ({s_ms / s * 1e3:.1f} us per step, {n_s} "
+              f"such layers), one mLSTM layer {m_ms:.2f} ms, on {self.card}")
+
+    def _moe_drops(self, lm, params, first, tag):
+        """The share of routed assignments dropped by capacity, reckoned
+        from the port's ``_route`` and the capacity formula on every MoE
+        layer's normed input, captured by wrapping ``_route`` during an
+        untimed prefill of the first bucket and one decode step."""
+        torch = self.torch
+        m = lm.cfg.moe
+        s = first["prompt_batch"].shape[1]
+        with self._routes() as (seen, route):
+            _, caches = lm.prefill(params, first["batch"], cache_len=s + 1)
+            n_pre = len(seen)
+            lm.decode_step(params, caches, first["tok"])
+        del caches
+
+        def share(calls):
+            drops = total = 0
+            for x, w in calls:
+                idx, _, _ = route(x, w, m, aux=False)
+                cap = max(int(np.ceil(idx.shape[0] * m.top_k
+                                      * m.capacity_factor / m.n_experts)), 1)
+                counts = torch.bincount(idx.reshape(-1),
+                                        minlength=m.n_experts)
+                drops += int((counts - cap).clamp(min=0).sum())
+                total += idx.numel()
+            return drops, total, cap
+
+        pre, dec, l0 = (share(seen[:n_pre]), share(seen[n_pre:]),
+                        share(seen[n_pre:n_pre + 1]))
+        self.lm_times["drops"] = dict(prefill=pre[0] / pre[1],
+                                      decode=dec[0] / dec[1],
+                                      decode_layer0=l0[0] / l0[1])
+        b = first["prompt_batch"].shape[0]
+        print(f"{tag} capacity drops (factor {m.capacity_factor}): decode "
+              f"step at batch {b}, layer 0: {l0[0]} of {l0[1]} assignments "
+              f"({l0[0] / l0[1]:.1%}, capacity {l0[2]} per expert), all "
+              f"{len(seen) - n_pre} layers {dec[0] / dec[1]:.1%}; prefill "
+              f"of {s} x {b}: {pre[0]} of {pre[1]} ({pre[0] / pre[1]:.2%}, "
+              f"capacity {pre[2]})")
 
     # -- phase 7 -------------------------------------------------------------
     def serve_layer(self):
@@ -2244,6 +2569,7 @@ class Smoke:
                 launches_sharded=self.sharded_launches.get(name, 0),
                 launches_serve_layer=self.serve_launches.get(name, 0),
                 launches_lm_serve=self.lm_launches.get(name, 0),
+                launches_lm_blocks=self.blocks_launches.get(name, 0),
                 max_abs_err=max(v for v in e.values() if v is not None),
                 **{f"max_abs_err_{m}": v for m, v in e.items()},
                 **self.kernels[name]))
@@ -2279,7 +2605,7 @@ def main() -> int:
     for phase in (smoke.build, smoke.twins, smoke.main_path,
                   smoke.baseline_twins, smoke.fixed_matrix, smoke.times,
                   smoke.fixed_times, smoke.autotune, smoke.sharded,
-                  smoke.serve_layer, smoke.lm_serve):
+                  smoke.serve_layer, smoke.lm_serve, smoke.lm_blocks):
         t0 = time.perf_counter()
         print(f"== {phase.__name__}")
         try:

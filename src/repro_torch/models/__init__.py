@@ -1,3 +1,3 @@
-"""Model substrate: attention, GQA blocks, int8 serving and the LM
-assembly (the dense decoder-only family; MoE, MLA and the recurrent blocks
-come with later ROADMAP A12 items)."""
+"""Model substrate: attention (GQA/MQA, MLA), MoE, the recurrent blocks
+(RG-LRU, mLSTM, sLSTM), int8 serving and the LM assembly, the enc-dec
+stack included; a device mesh waits for ROADMAP A12f."""

@@ -3,11 +3,11 @@
 Every registered architecture equal field by field (nested sub-configs
 included), ``reduced()``, ``list_archs()``, ``SHAPES`` and the
 ``supports_shape`` matrix equal; the full-width parameter count of every
-dense architecture the port serves equal to the reference's
-``LM.param_count()`` (the port's counted on the ``meta`` device); the
-architectures whose blocks wait raise ``NotImplementedError`` naming their
-ROADMAP item; the roofline's LM functions equal for every arch x shape
-(the same Python arithmetic, so exactly), at the H100's peaks.
+architecture equal to the reference's ``LM.param_count()`` (the port's
+counted on the ``meta`` device); only a device mesh still raises
+``NotImplementedError`` naming its ROADMAP item (A12f); the roofline's LM
+functions equal for every arch x shape (the same Python arithmetic, so
+exactly), at the H100's peaks.
 """
 
 import dataclasses
@@ -25,14 +25,15 @@ from repro_torch.models.transformer import LM
 ARCHS = jcfg.list_archs()
 DENSE = ["gemma-2b", "internvl2-76b", "mistral-nemo-12b", "qwen3-32b",
          "stablelm-1.6b"]
-WAITS = {"deepseek-v2-236b": "A12b", "olmoe-1b-7b": "A12b",
-         "recurrentgemma-2b": "A12c", "xlstm-350m": "A12c",
-         "whisper-base": "A12d"}
+# the archs of the later A12 slices: MoE and MLA (A12b), the recurrent
+# blocks (A12c), the enc-dec stack (A12d)
+LATER = ["deepseek-v2-236b", "olmoe-1b-7b", "recurrentgemma-2b",
+         "whisper-base", "xlstm-350m"]
 
 
 def test_archs_listed_alike():
     assert tcfg.list_archs() == ARCHS
-    assert sorted(DENSE + list(WAITS)) == ARCHS
+    assert sorted(DENSE + LATER) == ARCHS
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -85,7 +86,7 @@ def test_unknown_arch_raises():
         tcfg.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_full_width_param_count_equal(arch):
     port = LM(tcfg.get_config(arch), device="cpu").param_count()
     assert port == JLM(jcfg.get_config(arch)).param_count()
@@ -97,10 +98,29 @@ def test_mistral_nemo_param_count_constant():
               device="cpu").param_count() == 12_247_782_400
 
 
-@pytest.mark.parametrize("arch", sorted(WAITS))
-def test_waiting_archs_raise_naming_their_item(arch):
-    with pytest.raises(NotImplementedError, match=WAITS[arch]):
-        LM(tcfg.reduced(tcfg.get_config(arch)), device="cpu")
+@pytest.mark.parametrize("arch,count", [
+    ("olmoe-1b-7b", 6_919_100_416),
+    ("deepseek-v2-236b", 239_375_569_920)])
+def test_moe_param_count_constants(arch, count):
+    # the constants chip_smoke.py's lm_blocks phase holds the models to
+    assert LM(tcfg.get_config(arch), device="cpu").param_count() == count
+
+
+def test_deepseek_depth_cut_param_count_constant():
+    cut = tcfg.get_config("deepseek-v2-236b").replace(n_layers=4)
+    assert LM(cut, device="cpu").param_count() == 16_937_047_040
+    assert JLM(jcfg.get_config("deepseek-v2-236b").replace(
+        n_layers=4)).param_count() == 16_937_047_040
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_arch_builds_and_only_a_mesh_raises(arch):
+    from repro_torch.models.transformer import ParallelCtx
+    cfg = tcfg.reduced(tcfg.get_config(arch))
+    lm = LM(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="A12f"):
+        lm.prefill({}, {"tokens": torch.zeros((1, 2), dtype=torch.long)},
+                   cache_len=4, ctx=ParallelCtx(mesh=object()))
 
 
 def test_lm_defaults_to_the_card():

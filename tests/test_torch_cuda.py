@@ -789,6 +789,9 @@ def test_sharded_shrink_grow_and_shard_death_on_the_card(cuda):
 # -- the LM serving path on the card ------------------------------------------
 _LM_DENSE = ["gemma-2b", "internvl2-76b", "mistral-nemo-12b", "qwen3-32b",
              "stablelm-1.6b"]
+# MoE and MLA (A12b), the recurrent blocks (A12c), the enc-dec stack (A12d)
+_LM_LATER = ["deepseek-v2-236b", "olmoe-1b-7b", "recurrentgemma-2b",
+             "whisper-base", "xlstm-350m"]
 # the reference's own bound between two of its bf16 paths
 # (tests/test_arch_smoke.py); float32 products in another order: 1e-4
 _LM_BF16_TOL = 0.15
@@ -813,6 +816,10 @@ def _lm_batch(cfg, b, s, device, seed=0):
     if cfg.frontend == "vision":
         batch["patches"] = torch.as_tensor(rng.standard_normal(
             (b, 4, cfg.d_model)).astype(np.float32), device=device)
+    if cfg.encoder is not None:
+        batch["frames"] = torch.as_tensor(rng.standard_normal(
+            (b, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32),
+            device=device)
     return batch
 
 
@@ -820,7 +827,7 @@ def _to(batch, device):
     return {k: v.to(device) for k, v in batch.items()}
 
 
-@pytest.mark.parametrize("arch", _LM_DENSE)
+@pytest.mark.parametrize("arch", _LM_DENSE + _LM_LATER)
 def test_lm_fp32_on_card_matches_cpu(cuda, arch):
     """float32 prefill and four greedy decode steps on the card against
     the port on the CPU, with TF32 asked for by the caller (the LM keeps
@@ -845,7 +852,7 @@ def test_lm_fp32_on_card_matches_cpu(cuda, arch):
     assert mm.allow_tf32 == old
 
 
-@pytest.mark.parametrize("arch", _LM_DENSE)
+@pytest.mark.parametrize("arch", _LM_DENSE + _LM_LATER)
 def test_lm_bf16_on_card_finite_and_argmax_agrees(cuda, arch):
     """bf16 on the card: finite logits within the bf16 bound of the CPU's,
     and the same argmax wherever the CPU's top-two margin exceeds twice
@@ -921,3 +928,55 @@ def test_lm_decode_step_never_syncs(cuda, quantized):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(caches["index"]) == 11
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-236b"])
+def test_moe_decode_step_never_syncs(cuda, arch):
+    """A MoE decode step (routing, the sort-based dispatch, MLA's latent
+    cache for deepseek) queues its work without a host-device
+    synchronisation: every shape is static."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    cfg, _, _, glm, gparams = _lm_pair(arch, "bfloat16", cuda)
+    logits, caches = make_prefill_step(glm, None, 12)(
+        gparams, _lm_batch(cfg, 4, 8, cuda))
+    decode = make_decode_step(glm, None)
+    tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            logits, caches = decode(gparams, caches, tok)
+            tok = logits.argmax(-1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(caches["index"]) == 11
+
+
+def _moe_at_capacity(arch):
+    """The reduced config's MoE at the full config's capacity factor
+    (1.25), so a decode step of batch 4 drops assignments too."""
+    from repro_torch.configs import get_config, reduced
+    m = reduced(get_config(arch)).moe
+    return m.__class__(n_experts=m.n_experts, top_k=m.top_k,
+                       d_expert=m.d_expert, n_shared=m.n_shared)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-236b"])
+def test_moe_decode_repeats_bit_for_bit(cuda, arch):
+    """Two decode steps from the same caches give the same logits and
+    caches bit for bit: the combine sums each token's k contributions in
+    a fixed order, with no atomic adds."""
+    from repro_torch.models.common import tree_map
+    cfg, _, _, glm, gparams = _lm_pair(arch, "float32", cuda,
+                                       moe=_moe_at_capacity(arch))
+    logits, caches = glm.prefill(gparams, _lm_batch(cfg, 4, 8, cuda),
+                                 cache_len=12)
+    tok = logits.argmax(-1)
+    outs = []
+    for _ in range(2):
+        mine = tree_map(lambda a: a.clone(), caches)
+        lg, mine = glm.decode_step(gparams, mine, tok)
+        outs.append((lg, mine))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1]["groups"]["b0"]["pos"],
+                       outs[1][1]["groups"]["b0"]["pos"])

@@ -44,6 +44,7 @@ BF16_TOL = 0.15
 CPU = torch.device("cpu")
 DENSE = ["gemma-2b", "internvl2-76b", "mistral-nemo-12b", "qwen3-32b",
          "stablelm-1.6b"]
+ARCHS = tcfg.list_archs()   # the dense five, MoE, MLA, recurrent, enc-dec
 
 
 @pytest.fixture(autouse=True)
@@ -87,8 +88,7 @@ def _pair(arch, dtype="float32", **over):
     jlm = JLM(rcfg)
     jp = jlm.init(jax.random.PRNGKey(1)).params
     lm = LM(cfg, device=CPU)
-    return cfg, jlm, jp, lm, lm_params_from_numpy(to_np(jp), dtype=lm.dtype,
-                                                  device=CPU)
+    return cfg, jlm, jp, lm, lm_params_from_numpy(to_np(jp), cfg, device=CPU)
 
 
 def _batches(cfg, rng, b, s):
@@ -97,6 +97,9 @@ def _batches(cfg, rng, b, s):
     if cfg.frontend == "vision":
         pt = rand(rng, b, 4, cfg.d_model)
         jb["patches"], tb["patches"] = jnp.asarray(pt), t(pt)
+    if cfg.encoder is not None:    # whisper: stub frame embeddings
+        fr = rand(rng, b, cfg.encoder.seq_len, cfg.d_model)
+        jb["frames"], tb["frames"] = jnp.asarray(fr), t(fr)
     return toks, jb, tb
 
 
@@ -423,10 +426,10 @@ def _dtype(a):
     return str(a.dtype).removeprefix("torch.")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_init_tree_matches_reference(arch):
     """The same nesting, stacked shapes, axes, and dtypes (bf16 weights,
-    float32 norms)."""
+    float32 norms, routers, xLSTM gates and RG-LRU's ``lam``)."""
     cfg = tcfg.reduced(tcfg.get_config(arch))
     jpax = JLM(jcfg.reduced(jcfg.get_config(arch))).init(
         jax.random.PRNGKey(0))
@@ -444,10 +447,11 @@ def test_init_wants_a_generator_on_the_lm_device():
         lm.init(torch.Generator())
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_greedy_decode_match(arch):
     """float32: prefill logits, then four greedy decode steps, each fed
-    its own argmax: logits within TOL, tokens and cache tags exact."""
+    its own argmax: logits within TOL, tokens and cache tags (or recurrent
+    states) exact / within TOL."""
     cfg, jlm, jp, lm, tp = _pair(arch)
     _, jb, tb = _batches(cfg, np.random.default_rng(12), 2, 10)
     jl, jc = jlm.prefill(jp, jb, cache_len=20)
@@ -462,9 +466,14 @@ def test_prefill_and_greedy_decode_match(arch):
         tl, tc = lm.decode_step(tp, tc, tt)
         close(tl, jl)
     assert int(tc["index"]) == int(jc["index"])
-    np.testing.assert_array_equal(tc["groups"]["b0"]["pos"].numpy(),
-                                  np.asarray(jc["groups"]["b0"]["pos"]))
-    close(tc["groups"]["b0"]["k"], jc["groups"]["b0"]["k"])
+    for key, got in tc["groups"]["b0"].items():
+        want = jc["groups"]["b0"][key]
+        if key == "pos":
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        else:
+            close(got, want)
+    if cfg.encoder is not None:
+        close(tc["enc"], jc["enc"])
 
 
 @pytest.mark.parametrize("prompt", [12, 13])
@@ -535,12 +544,14 @@ def test_tail_group_matches():
 
 
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "gemma-2b",
-                                  "stablelm-1.6b"])
+                                  "stablelm-1.6b", "olmoe-1b-7b",
+                                  "deepseek-v2-236b", "recurrentgemma-2b",
+                                  "xlstm-350m", "whisper-base"])
 def test_bf16_path_matches_within_bound(arch):
     """bf16 weights and activations: prefill logits and two decode steps
     fed the same tokens, within BF16_TOL; finite."""
     cfg, jlm, jp, lm, tp = _pair(arch, "bfloat16")
-    assert tp["groups"]["b0"]["attn"]["wq"].dtype == torch.bfloat16
+    assert tp["embed"].dtype == torch.bfloat16
     assert tp["final_norm"]["w"].dtype == torch.float32
     toks, jb, tb = _batches(cfg, np.random.default_rng(15), 2, 12)
     jl, jc = jlm.prefill(jp, jb, cache_len=16)
@@ -571,7 +582,7 @@ def test_int8_path_matches_reference_int8(dtype):
                                       np.asarray(jq[name]["q"]))
     assert tquant.is_quantized_leaf(tq["groups"]["b0"]["mlp"]["w_up"])
     # the reference's int8 tree carried across as it is
-    tq2 = lm_params_from_numpy(to_np(jq), dtype=lm.dtype, device=CPU)
+    tq2 = lm_params_from_numpy(to_np(jq), cfg, device=CPU)
     np.testing.assert_array_equal(
         tq2["groups"]["b0"]["attn"]["wq"]["q"].numpy(),
         tq["groups"]["b0"]["attn"]["wq"]["q"].numpy())
@@ -603,8 +614,7 @@ def test_int8_decode_close_to_bf16():
     assert np.corrcoef(a, b)[0, 1] > 0.98
 
 
-@pytest.mark.parametrize("arch", ["qwen3-32b", "gemma-2b", "stablelm-1.6b",
-                                  "mistral-nemo-12b", "internvl2-76b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_teacher_forcing(arch):
     """The reference's check on the port alone (bf16, its bound): the
     cached incremental path and the parallel path agree."""

@@ -6,7 +6,8 @@ Run from the root of a checkout::
     python3 tools/probe_lm_decode.py [--arch NAME] [--batch B] [--prompt S]
 
 It builds the config at full width in bf16 from a seeded generator on the
-card (mistral-nemo-12b by default), prefills ``B`` random prompts of ``S``
+card (mistral-nemo-12b by default; any registered config, the MoE, MLA,
+recurrent and enc-dec ones included), prefills ``B`` random prompts of ``S``
 tokens, then for the bf16 tree and for its ``quantize_tree`` int8 tree
 times one decode step (with its greedy argmax) three ways: the host's
 enqueue time (the call returns before the device is done), the wall time
@@ -77,11 +78,15 @@ def main() -> int:
     params = lm.init(torch.Generator(device=lm.device).manual_seed(0)).params
     toks = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt),
                          device=lm.device)
+    batch = {"tokens": toks}
+    if cfg.encoder is not None:      # whisper: stub frame embeddings
+        batch["frames"] = torch.randn(
+            (args.batch, cfg.encoder.seq_len, cfg.d_model), device=lm.device)
     result = {"arch": args.arch, "batch": args.batch, "prompt": args.prompt,
               "card": name}
     for tag in ("bf16", "int8"):
         tree = params if tag == "bf16" else quantize_tree(params)
-        logits, caches = lm.prefill(tree, {"tokens": toks},
+        logits, caches = lm.prefill(tree, batch,
                                     cache_len=args.prompt + 16)
         state = {"caches": caches, "tok": logits.argmax(-1)}
 
