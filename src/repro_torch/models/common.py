@@ -25,14 +25,16 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.device import resolve_device
 
 __all__ = ["ParamsWithAxes", "dense_init", "zeros_init", "ones_init",
-           "split_tree", "tree_map", "tree_leaves", "rmsnorm", "layernorm", "norm_init",
-           "apply_norm", "rope_angles", "apply_rope", "mlp_init",
-           "mlp_apply", "embed_init", "embed_lookup",
-           "logits_from_embedding"]
+           "split_tree", "tree_map", "tree_leaves", "tree_leaves_with_path",
+           "rmsnorm", "layernorm", "norm_init", "apply_norm", "rope_angles",
+           "apply_rope", "mlp_init", "mlp_apply", "embed_init",
+           "embed_lookup", "logits_from_embedding", "cross_entropy",
+           "cross_entropy_streamed"]
 
 # Logical axis vocabulary (the JAX package's):
 #   vocab   - vocabulary dim               -> TP
@@ -68,6 +70,22 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_leaves_with_path(tree, path=()) -> list:
+    """``(path, leaf)`` pairs in the JAX package's leaf order
+    (``jax.tree_util.tree_flatten_with_path``): dict keys sorted, list and
+    tuple entries by index, ``None`` an empty subtree.  What the optimizer
+    sums in and the checkpoint names files by."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_leaves_with_path(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_leaves_with_path(v, path + (i,))]
+    return [(path, tree)]
 
 
 def _lead_axes(lead, axes):
@@ -238,3 +256,66 @@ def logits_from_embedding(x, table, softcap=None):
     if softcap is not None:
         out = torch.tanh(out / softcap) * softcap
     return out
+
+
+def _nll(logits, labels):
+    """(logsumexp, the label's logit) of float32 logits over the vocab."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return lse, ll
+
+
+def cross_entropy(logits, labels, mask=None, z_loss=0.0):
+    """Token-mean cross entropy in f32, optional z-loss regularizer."""
+    logits = logits.float()
+    lse, ll = _nll(logits, labels)
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse ** 2
+    if mask is None:
+        return loss.mean()
+    mask = mask.float()
+    return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def cross_entropy_streamed(x, table, labels, mask=None, softcap=None,
+                           chunk: int = 512):
+    """CE against a tied embedding without materializing (B, S, V) logits.
+
+    Walks the sequence in chunks of ``chunk`` (then the remainder); each
+    chunk's logits are reduced to (B, chunk) statistics before the next
+    chunk's are made, and each full chunk's loss runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so its
+    float32 logits are recomputed in the backward pass and only one
+    chunk's are ever live.  The reference's vocab-sharding anchor on the
+    logits (``shard_spec``) waits for the mesh rules of ROADMAP A12f1.
+    """
+    b, s, d = x.shape
+    chunk = min(chunk, s)
+    n = s // chunk
+    rem = s - n * chunk
+
+    def chunk_loss(xs, ls, ms):
+        logits = xs @ table.T.to(xs.dtype)
+        if softcap is not None:
+            logits = torch.tanh(logits / softcap) * softcap
+        lse, ll = _nll(logits.float(), ls)
+        loss = (lse - ll) * ms
+        return loss.sum(), ms.sum()
+
+    def ones(width):
+        return torch.ones((b, width), dtype=torch.float32, device=x.device)
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        ms = mask[:, sl].float() if mask is not None else ones(chunk)
+        dl, dc = torch_checkpoint.checkpoint(
+            chunk_loss, x[:, sl], labels[:, sl], ms, use_reentrant=False)
+        tot, cnt = tot + dl, cnt + dc
+    if rem:
+        ms = mask[:, n * chunk:].float() if mask is not None else ones(rem)
+        dl, dc = chunk_loss(x[:, n * chunk:], labels[:, n * chunk:], ms)
+        tot, cnt = tot + dl, cnt + dc
+    return tot / torch.clamp(cnt, min=1.0)

@@ -1,4 +1,4 @@
-"""Model assembly: block dispatch, stacked layer groups, the LM serving API.
+"""Model assembly: block dispatch, stacked layer groups, the LM API.
 
 A config's ``block_pattern`` (e.g. ``("rglru", "rglru", "local")``) defines
 one *group*; the depth is ``n_groups`` repetitions (plus an optional tail).
@@ -19,22 +19,27 @@ decoder group.  Only a device mesh (TP/FSDP/EP, ROADMAP A12f) raises
 ``NotImplementedError``.
 
 ``LM`` keeps the JAX package's functional API: parameters are a nested
-dict of tensors, ``prefill`` / ``decode_step`` take them as arguments.  It
-departs where PyTorch works differently: an explicit ``device`` (``None``
-= ``cuda``, raising without one) and ``torch.Generator`` keys; caches and
-recurrent states preallocated and written in place (a decode step returns
-the caches it was given, advanced); the decode position a 0-dim device
-tensor, so a decode step never synchronises with the host; ``param_count``
-on the ``meta`` device in place of ``jax.eval_shape``.
+dict of tensors, ``loss`` / ``prefill`` / ``decode_step`` take them as
+arguments.  It departs where PyTorch works differently: an explicit
+``device`` (``None`` = ``cuda``, raising without one) and
+``torch.Generator`` keys; caches and recurrent states preallocated and
+written in place (a decode step returns the caches it was given,
+advanced); the decode position a 0-dim device tensor, so a decode step
+never synchronises with the host; ``param_count`` on the ``meta`` device in
+place of ``jax.eval_shape``.  ``loss`` runs the same blocks without caches
+(nothing written in place, so autograd can differentiate it), and its
+``remat`` modes are ``torch.utils.checkpoint`` (``_remat``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import functools
+from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import ieee_fp32, resolve_device
@@ -42,13 +47,15 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import gqa, mla as mla_lib, moe as moe_lib
 from repro_torch.models import rglru as rglru_lib, xlstm as xlstm_lib
 from repro_torch.models.common import (ParamsWithAxes, apply_norm,
+                                       cross_entropy, cross_entropy_streamed,
                                        dense_init, embed_init, embed_lookup,
                                        logits_from_embedding, mlp_apply,
                                        mlp_init, norm_init, split_tree,
                                        tree_leaves, tree_map)
 from repro_torch.models.quantize import dequant_tree, is_quantized_leaf
 
-__all__ = ["LM", "ParallelCtx", "lm_params_from_numpy"]
+__all__ = ["LM", "ParallelCtx", "lm_params_from_numpy",
+           "train_state_from_numpy"]
 
 # what the port does not run yet, by ROADMAP item
 _WAITS = {
@@ -113,33 +120,44 @@ def _store(cache, state) -> None:
         cache[k].copy_(v)
 
 
-def _ffn(x, p, cfg: ModelConfig, ctx: ParallelCtx):
-    """The block's second half: MLP or MoE (its aux loss dropped, as the
-    reference's serving path drops it)."""
+def _ffn(x, p, cfg: ModelConfig, ctx: ParallelCtx, aux: bool = False):
+    """The block's second half: MLP or MoE.  Returns (x, aux_loss): the MoE
+    aux loss with ``aux`` (the training loss), else ``None`` (the
+    reference's serving path drops it, so it is not computed)."""
+    loss = torch.zeros((), dtype=torch.float32, device=x.device) \
+        if aux else None
     if "norm2" in p:
         h = apply_norm(x, p["norm2"], cfg.norm)
         if "moe" in p:
-            out, _ = moe_lib.moe_forward(h, p["moe"], cfg, ctx.mesh,
-                                         ctx.data_axes, ctx.model_axis,
-                                         fsdp_gather=ctx.fsdp, aux=False)
+            out, loss = moe_lib.moe_forward(h, p["moe"], cfg, ctx.mesh,
+                                            ctx.data_axes, ctx.model_axis,
+                                            fsdp_gather=ctx.fsdp, aux=aux)
         else:
             out = mlp_apply(h, p["mlp"], cfg.mlp_act)
         x = x + out
-    return x
+    return x, loss
 
 
 def _block_forward(x, p, cfg: ModelConfig, kind: str, ctx: ParallelCtx, *,
-                   cache, cache_len):
-    """Full-sequence block; fills ``cache`` (one layer's view) in place."""
+                   cache=None, cache_len=None):
+    """Full-sequence block.  Returns (x, aux_loss).
+
+    With ``cache`` (prefill) it fills that cache (one layer's view) in
+    place and drops the MoE aux loss (``None``).  Without one (the
+    training loss) it writes nothing in place, so autograd can
+    differentiate it, and returns the aux loss (0 without a MoE).
+    """
     h = apply_norm(x, p["norm1"], cfg.norm)
     if kind in ("attn", "local"):
         window = cfg.window if kind == "local" else None
+        clen = None if cache is None else _cache_len_for(cfg, kind,
+                                                         cache_len)
         out, _ = gqa.attn_forward(h, p["attn"], cfg, window=window,
-                                  make_cache=True, cache=cache,
-                                  cache_len=_cache_len_for(cfg, kind,
-                                                           cache_len))
+                                  make_cache=cache is not None, cache=cache,
+                                  cache_len=clen)
     elif kind == "mla":
-        out, _ = mla_lib.mla_forward(h, p["attn"], cfg, make_cache=True,
+        out, _ = mla_lib.mla_forward(h, p["attn"], cfg,
+                                     make_cache=cache is not None,
                                      cache=cache, cache_len=cache_len)
     else:
         if kind == "rglru":
@@ -150,8 +168,9 @@ def _block_forward(x, p, cfg: ModelConfig, kind: str, ctx: ParallelCtx, *,
             out, state = _slstm_sharded(h, p["mixer"], cfg, ctx)
         else:
             raise ValueError(kind)
-        _store(cache, state)
-    return _ffn(x + out, p, cfg, ctx)
+        if cache is not None:
+            _store(cache, state)
+    return _ffn(x + out, p, cfg, ctx, aux=cache is None)
 
 
 def _block_decode(x, p, cfg: ModelConfig, kind: str, ctx: ParallelCtx,
@@ -175,7 +194,7 @@ def _block_decode(x, p, cfg: ModelConfig, kind: str, ctx: ParallelCtx,
         else:
             raise ValueError(kind)
         _store(cache, state)
-    return _ffn(x + out, p, cfg, ctx)
+    return _ffn(x + out, p, cfg, ctx)[0]
 
 
 def _cache_len_for(cfg: ModelConfig, kind: str, cache_len: int) -> int:
@@ -204,9 +223,42 @@ def _init_cache_for(cfg: ModelConfig, kind: str, batch, cache_len, dtype, *,
 
 def _layers(tree, n: int) -> list:
     """A stacked tree -> ``n`` per-layer trees of views (one ``unbind`` per
-    leaf, no copy)."""
+    leaf, no copy; gradients flow back into the stacked leaf)."""
     split = tree_map(lambda a: a.unbind(0), tree)
     return [tree_map(lambda t: t[i], split) for i in range(n)]
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """The ``dots`` policy: keep the outputs of products without batch
+    dims (``mm`` / ``addmm``: every weight projection, ``x @ W`` and the
+    einsums that fold to one), recompute everything else (batched
+    attention and expert products, elementwise work) -- the reference's
+    ``dots_with_no_batch_dims_saveable``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, mode: str):
+    """``fn`` under the config's rematerialization mode (the reference's
+    ``jax.checkpoint``): ``none`` keeps every activation, ``full`` keeps
+    only ``fn``'s inputs and recomputes the rest in the backward pass,
+    ``dots`` recomputes all but the products ``_save_products`` keeps.
+    Recomputation runs the same operations on the same inputs: the loss and
+    gradients are the same bits in every mode."""
+    if mode == "none":
+        return fn
+    kw = {}
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _save_products)
+
+    def wrapped(*args):
+        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                           **kw)
+
+    return wrapped
 
 
 # ---------------------------------------------------------------------------
@@ -294,11 +346,43 @@ class LM:
         cfg = self.cfg
         for gp, cg, pattern in self._groups(params, caches):
             for i, kind in enumerate(pattern):
-                x = _block_forward(x, gp[f"b{i}"], cfg, kind, ctx,
-                                   cache=cg[f"b{i}"], cache_len=cache_len)
+                x, _ = _block_forward(x, gp[f"b{i}"], cfg, kind, ctx,
+                                      cache=cg[f"b{i}"], cache_len=cache_len)
             if enc is not None and "xattn" in gp:
                 x = self._cross(x, gp, enc)
         return x
+
+    def _group_loss(self, x, gp, pattern, ctx, enc=None):
+        """One group of the training forward: (x, the group's aux loss),
+        summed block by block from 0 as the reference's ``_group_forward``
+        does."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        gp = dequant_tree(gp, self.dtype)
+        for i, kind in enumerate(pattern):
+            x, a = _block_forward(x, gp[f"b{i}"], self.cfg, kind, ctx)
+            aux = aux + a
+        if enc is not None:
+            x = self._cross(x, gp, enc)
+        return x, aux
+
+    def _train_stack(self, params, x, ctx, enc=None):
+        """The layer stack of the loss: no cache, each group under
+        ``_remat`` (the decoder-only stack; the reference remats neither the
+        tail nor the enc-dec stack), the aux loss summed over groups and
+        then the tail in the reference's order.  Returns (x, aux)."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        group = functools.partial(self._group_loss, pattern=cfg.block_pattern,
+                                  ctx=ctx, enc=enc)
+        if enc is None:
+            group = _remat(group, cfg.remat)
+        for gp in _layers(params["groups"], cfg.n_groups):
+            x, a = group(x, gp)
+            aux = aux + a
+        if cfg.tail_pattern:
+            x, a = self._group_loss(x, params["tail"], cfg.tail_pattern, ctx)
+            aux = aux + a
+        return x, aux
 
     def _cross(self, x, gp, enc):
         """The enc-dec cross-attention after a group (its k/v from the
@@ -343,6 +427,46 @@ class LM:
         if cfg.logit_softcap:
             out = torch.tanh(out / cfg.logit_softcap) * cfg.logit_softcap
         return out
+
+    # -- training loss --------------------------------------------------------
+    def loss(self, params, batch, ctx: Optional[ParallelCtx] = None):
+        """The training loss: token-mean cross entropy plus the MoE aux loss.
+
+        ``batch["tokens"]`` (B, S+1) integer ids (int64 on the device; the
+        inputs are ``[:, :-1]``, the labels ``[:, 1:]``), plus ``patches``
+        (B, P, d) for a ``vision`` config (prefixed, then sliced off before
+        the logits) or ``frames`` (B, T, d) for an enc-dec one, and an
+        optional ``mask`` (B, S).  Above 2^24 logits per sequence row
+        (``S * V``) the vocab projection streams in chunks
+        (``cross_entropy_streamed``).  Differentiate it with
+        ``torch.autograd.grad`` over parameters that require grad
+        (``make_train_step`` does).
+        """
+        _check_ctx(ctx)
+        ctx = ctx or ParallelCtx()
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        inp, labels = tokens[:, :-1], tokens[:, 1:]
+        extra = batch.get("patches") if cfg.frontend == "vision" else None
+        with ieee_fp32(self.device):
+            x = self._embed(params, inp, extra)
+            enc = (self._encode(params, batch["frames"], ctx)
+                   if cfg.encoder is not None else None)
+            x, aux = self._train_stack(params, x, ctx, enc)
+            if extra is not None:
+                x = x[:, extra.shape[1]:]
+            mask = batch.get("mask")
+            x = apply_norm(x, params["final_norm"], cfg.norm)
+            table = (params["embed"] if cfg.tie_embeddings
+                     else params["lm_head"].T)
+            if x.shape[1] * cfg.vocab_size > (1 << 24):
+                # stream the vocab projection: never materialize (B, S, V)
+                loss = cross_entropy_streamed(x, table, labels, mask,
+                                              softcap=cfg.logit_softcap)
+            else:
+                logits = logits_from_embedding(x, table, cfg.logit_softcap)
+                loss = cross_entropy(logits, labels, mask)
+            return loss + aux
 
     # -- serving ---------------------------------------------------------------
     def init_caches(self, batch, cache_len):
@@ -448,3 +572,24 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, *, device=None):
         return torch.tensor(a, device=dev)
 
     return walk(tree, like)
+
+
+def train_state_from_numpy(state, cfg: ModelConfig, *, device=None):
+    """The JAX package's train state ``{"params", "opt": {"m", "v",
+    "step"}}`` (NumPy leaves, floats as float32) -> the port's, on
+    ``device``: the parameters through ``lm_params_from_numpy`` (the
+    port's own dtypes), ``m`` and ``v`` in ``cfg.opt_dtype``, ``step`` a
+    0-dim int32 tensor."""
+    dev = resolve_device(device)
+    opt_dtype = (torch.bfloat16 if cfg.opt_dtype == "bfloat16"
+                 else torch.float32)
+    # a copy: the state is written in place, never into the caller's
+    # arrays
+    moment = lambda a: torch.tensor(np.asarray(a, np.float32)).to(
+        device=dev, dtype=opt_dtype)
+    opt = state["opt"]
+    return {"params": lm_params_from_numpy(state["params"], cfg, device=dev),
+            "opt": {"m": tree_map(moment, opt["m"]),
+                    "v": tree_map(moment, opt["v"]),
+                    "step": torch.tensor(np.asarray(opt["step"], np.int32),
+                                         device=dev)}}

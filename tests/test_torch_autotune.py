@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.core import esn as jesn
@@ -50,6 +51,30 @@ from repro_torch.plan.autotune import (BACKENDS, Schedule, ScheduleCache,
                                        resolve_schedule)
 from repro_torch.serve import (ReservoirEngine, engine_cache_clear,
                                engine_cache_stats, engine_for)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_xla_executables():
+    """Free the XLA executables this module's reference calls compiled once
+    its tests in this worker are done: each holds JIT memory mappings, and
+    a test worker that keeps every module's executables can pass the
+    kernel's per-process mapping limit (``vm.max_map_count``) inside a
+    later compile, which then aborts the worker (ROADMAP C-port-5)."""
+    yield
+    jax.clear_caches()
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One PyTorch thread per test: the suite's parallel workers share the
+    cores with XLA's own thread pools, and torch's default of one thread
+    per core in every worker oversubscribes them (restored after each
+    test)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PRED_RTOL = 1e-12

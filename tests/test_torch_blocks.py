@@ -44,6 +44,17 @@ BF16_TOL = 0.15
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _release_xla_executables():
+    """Free the XLA executables this module's reference calls compiled once
+    its tests in this worker are done: each holds JIT memory mappings, and
+    a test worker that keeps every module's executables can pass the
+    kernel's per-process mapping limit (``vm.max_map_count``) inside a
+    later compile, which then aborts the worker (ROADMAP C-port-5)."""
+    yield
+    jax.clear_caches()
+
+
 @pytest.fixture(autouse=True)
 def _one_intra_op_thread():
     n = torch.get_num_threads()

@@ -17,6 +17,9 @@ arithmetic and to the ordering the autotuner needs of a prior.
 
 import numpy as np
 import pytest
+import torch
+
+import jax
 
 from repro.core import costmodel as jcm
 from repro.core.sparse import FixedMatrix as JFixed
@@ -28,6 +31,30 @@ from repro_torch.core.bitplanes import DigitPlanes
 from repro_torch.core.sparse import FixedMatrix as TFixed
 from repro_torch.launch import roofline
 from repro_torch.plan import plan_for, specialize_summary
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_xla_executables():
+    """Free the XLA executables this module's reference calls compiled once
+    its tests in this worker are done: each holds JIT memory mappings, and
+    a test worker that keeps every module's executables can pass the
+    kernel's per-process mapping limit (``vm.max_map_count``) inside a
+    later compile, which then aborts the worker (ROADMAP C-port-5)."""
+    yield
+    jax.clear_caches()
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One PyTorch thread per test: the suite's parallel workers share the
+    cores with XLA's own thread pools, and torch's default of one thread
+    per core in every worker oversubscribes them (restored after each
+    test)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 FIT_RTOL = 1e-9
 RENAME = {"xla": "torch", "pallas": "cuda"}

@@ -980,3 +980,105 @@ def test_moe_decode_repeats_bit_for_bit(cuda, arch):
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1]["groups"]["b0"]["pos"],
                        outs[1][1]["groups"]["b0"]["pos"])
+
+
+# -- training (A12e) -----------------------------------------------------------
+# a train step on the card against the CPU's, float32: the loss within
+# 1e-5 (as the CPU parity tests hold it), moments within 1e-4 of each
+# leaf's max (gradients summed in another order), parameters within the
+# first AdamW step's sensitivity to that (see _first_step_tol)
+_TRAIN_OPT = dict(lr=1e-2, warmup_steps=0, total_steps=10)
+
+
+def _first_step_tol(g, lr, rel=1e-4, eps=1e-8):
+    """How far two first AdamW steps may land apart when their gradients
+    ``g`` agree within ``rel * max|g|``: ``lr g / (|g| + eps)`` moves by at
+    most ``2 lr min(1, eps dg / g^2)``, plus 1e-6 of rounding."""
+    g = g.abs()
+    dg = rel * g.max()
+    return 1e-6 + 2 * lr * torch.clamp(eps * dg / g.square(), max=1.0)
+
+
+def _train_flat(tree):
+    from repro_torch.models.common import tree_leaves_with_path
+    return {"/".join(map(str, p)): x for p, x in tree_leaves_with_path(tree)}
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "olmoe-1b-7b",
+                                  "xlstm-350m"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import adamw
+    cfg, lm, params, glm, _ = _lm_pair(arch, "float32", cuda)
+    # a copy: each step writes its own state in place
+    gparams = tree_map(lambda a: a.to(cuda, copy=True), params)
+    batch = _lm_batch(cfg, 4, 17, "cpu", seed=3)
+    opt = adamw.AdamWConfig(**_TRAIN_OPT)
+    state = {"params": params, "opt": adamw.init_state(params)}
+    gstate = {"params": gparams, "opt": adamw.init_state(gparams)}
+    mm = torch.backends.cuda.matmul
+    old = mm.allow_tf32
+    mm.allow_tf32 = True                 # the step keeps IEEE fp32
+    try:
+        _, m = make_train_step(lm, None, opt)(state, batch)
+        _, gm = make_train_step(glm, None, opt)(gstate, _to(batch, cuda))
+    finally:
+        mm.allow_tf32 = old
+    assert abs(float(gm["loss"]) - float(m["loss"])) <= 1e-5
+    assert float(gm["grad_norm"]) == pytest.approx(float(m["grad_norm"]),
+                                                   rel=1e-4)
+    want, got = _train_flat(state), _train_flat(gstate)
+    assert int(got["opt/step"]) == 1
+    for name, x in got.items():
+        w, x = want[name], x.cpu()
+        if name.startswith(("opt/m", "opt/v")):
+            assert (x - w).abs().max() <= 1e-4 * w.abs().max(), name
+        elif name.startswith("params"):
+            g = want["opt/m" + name[len("params"):]] / 0.1
+            assert ((x - w).abs() <= _first_step_tol(
+                g, _TRAIN_OPT["lr"])).all(), name
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "olmoe-1b-7b",
+                                  "xlstm-350m"])
+def test_remat_modes_equal_on_card(cuda, arch):
+    """none, dots and full: the same loss and gradients bit for bit on
+    the card, bf16."""
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.transformer import LM
+    cfg, _, _, _, gparams = _lm_pair(arch, "bfloat16", cuda)
+    batch = _lm_batch(cfg, 2, 17, cuda, seed=4)
+    runs = []
+    for mode in ("none", "dots", "full"):
+        lm = LM(cfg.replace(remat=mode), device=cuda)
+        req = tree_map(lambda p: p.detach().requires_grad_(), gparams)
+        loss = lm.loss(req, batch)
+        runs.append((loss.detach(), torch.autograd.grad(
+            loss, tree_leaves(req))))
+    for loss, grads in runs[1:]:
+        assert torch.equal(loss, runs[0][0])
+        assert all(torch.equal(a, b) for a, b in zip(grads, runs[0][1]))
+
+
+def test_checkpoint_restore_on_card(cuda, tmp_path):
+    """A train state on the card (bf16 parameters, float32 moments, an
+    int32 step) saved and restored onto the card bit for bit."""
+    from repro_torch.checkpoint import store
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import adamw
+    _, _, _, _, gparams = _lm_pair("stablelm-1.6b", "bfloat16", cuda)
+    state = {"params": gparams, "opt": adamw.init_state(gparams)}
+    state["opt"]["m"] = tree_map(
+        lambda a: torch.randn_like(a, dtype=torch.float32), gparams)
+    ck = store.Checkpointer(tmp_path, every=1, keep=1)
+    ck.maybe_save(state, 3)
+    ck.finalize()
+    assert store.latest_step(tmp_path) == 3
+    out = store.restore(tree_map(torch.empty_like, state), tmp_path, 3)
+    for (name, a), b in zip(_train_flat(state).items(),
+                            _train_flat(out).values()):
+        assert b.device == a.device and b.dtype == a.dtype, name
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b), name

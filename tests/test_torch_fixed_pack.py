@@ -12,9 +12,11 @@ tig + e``; its A fragment holds rows ``gid`` / ``gid + 8`` at the same
 ``2 tig + 1``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core.sparse import BlockSparse as JBlockSparse
 from repro.core.sparse import FixedMatrix as JFixedMatrix
@@ -26,6 +28,30 @@ from repro_torch.core.sparse import (BlockSparse, FixedMatrix,
 from repro_torch.kernels.bcsr_matmul import bcsr_matmul as b4
 from repro_torch.kernels.bitplane_gemv import bitplane_gemv as b3
 from repro_torch.plan import BcsrLayout, plan_for
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_xla_executables():
+    """Free the XLA executables this module's reference calls compiled once
+    its tests in this worker are done: each holds JIT memory mappings, and
+    a test worker that keeps every module's executables can pass the
+    kernel's per-process mapping limit (``vm.max_map_count``) inside a
+    later compile, which then aborts the worker (ROADMAP C-port-5)."""
+    yield
+    jax.clear_caches()
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One PyTorch thread per test: the suite's parallel workers share the
+    cores with XLA's own thread pools, and torch's default of one thread
+    per core in every worker oversubscribes them (restored after each
+    test)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 LARGE_SMS = 132               # an H100 SXM
 

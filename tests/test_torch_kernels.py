@@ -14,6 +14,7 @@ to both.
   1e-4 (float32 matmul order and tanh differ between the frameworks).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -45,6 +46,30 @@ from repro_torch.kernels.reservoir_step import reservoir_step as b5
 from repro_torch.kernels.reservoir_step.ops import FusedReservoir
 from repro_torch.kernels.reservoir_step.ref import reservoir_step_ref
 from repro_torch.plan import plan_for
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_xla_executables():
+    """Free the XLA executables this module's reference calls compiled once
+    its tests in this worker are done: each holds JIT memory mappings, and
+    a test worker that keeps every module's executables can pass the
+    kernel's per-process mapping limit (``vm.max_map_count``) inside a
+    later compile, which then aborts the worker (ROADMAP C-port-5)."""
+    yield
+    jax.clear_caches()
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One PyTorch thread per test: the suite's parallel workers share the
+    cores with XLA's own thread pools, and torch's default of one thread
+    per core in every worker oversubscribes them (restored after each
+    test)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CPU = "cpu"
 

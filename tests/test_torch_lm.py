@@ -47,6 +47,17 @@ DENSE = ["gemma-2b", "internvl2-76b", "mistral-nemo-12b", "qwen3-32b",
 ARCHS = tcfg.list_archs()   # the dense five, MoE, MLA, recurrent, enc-dec
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _release_xla_executables():
+    """Free the XLA executables this module's reference calls compiled once
+    its tests in this worker are done: each holds JIT memory mappings, and
+    a test worker that keeps every module's executables can pass the
+    kernel's per-process mapping limit (``vm.max_map_count``) inside a
+    later compile, which then aborts the worker (ROADMAP C-port-5)."""
+    yield
+    jax.clear_caches()
+
+
 @pytest.fixture(autouse=True)
 def _one_intra_op_thread():
     """These tensors are small: one PyTorch thread per test keeps the

@@ -15,6 +15,19 @@ from repro_torch.kernels._launch import batch_tile
 from repro_torch.kernels.reservoir_step import reservoir_step as b5
 from repro_torch.kernels.reservoir_step.ops import FusedReservoir
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One PyTorch thread per test: the suite's parallel workers share the
+    cores with XLA's own thread pools, and torch's default of one thread
+    per core in every worker oversubscribes them (restored after each
+    test)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LARGE_SMS = 132               # an H100 SXM
 
 
