@@ -131,6 +131,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    the AdamW update, one layer's attention beside
    ``scaled_dot_product_attention``).  No kernel of B1-B5 may launch in (b) (``launches_lm_train``
    counts the phase: B2's come from (a));
+13. ``mesh`` (after ``train``): the LM substrate on the ``(1, 1)`` mesh of
+   ``make_host_mesh()`` (NCCL, world size 1, the process group set up in
+   this process through a file store under ``build/``), each run against
+   ``mesh=None`` from the same seeded state: (a) stablelm-1.6b at the
+   train phase's configuration, 3 steps of ``make_train_step`` (loss and
+   grad norm of every step, every parameter leaf after the last: bit for
+   bit); (b) olmoe-1b-7b at full width prefilled at 512 x 4 and decoded 8
+   greedy steps (every token and the last logits bit for bit); the ms per
+   train and decode step of both (CUDA events), the mesh's host overhead.
+   Four ranks on the one card need gloo (NCCL takes one rank per GPU): in
+   ``tools/probe_mesh.py`` gloo carried all-reduce, all-gather and
+   reduce-scatter of CUDA tensors among them, but the ranks died (SIGSEGV)
+   in a 2 x 2 DTensor mesh over them, so the multi-rank path is held by
+   the CPU tests alone.  No kernel of B1-B5 may launch
+   (``launches_lm_mesh``);
 5. times each kernel per launch at the LARGE_1024 shape with CUDA events
    and the profiler, beside its plain twin, one PyTorch call computing the
    same product (and cuSPARSE for B4), and the least time the card could
@@ -251,6 +266,15 @@ TRAIN_DROP = 0.3           # examples/train_lm.py's check on the loss
 # allows for a reduction whose order is not fixed from run to run
 TRAIN_RESUME_RTOL = 1e-6
 
+# the mesh phase: stablelm-1.6b at the train phase's configuration for
+# MESH_TRAIN_STEPS steps, olmoe-1b-7b prefilled at MESH_PROMPT (batch,
+# tokens) and decoded MESH_DECODE_STEPS greedy steps, each on the (1, 1)
+# mesh and without one
+MESH_TRAIN_STEPS = 3
+MESH_ARCH = "olmoe-1b-7b"
+MESH_PROMPT = (4, 512)
+MESH_DECODE_STEPS = 8
+
 # Published H100 SXM peaks (NVIDIA data sheet) used for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -329,6 +353,7 @@ class Smoke:
         self.lm_launches: dict = {}
         self.blocks_launches: dict = {}
         self.train_launches: dict = {}
+        self.mesh_launches: dict = {}
 
     def check(self, cond: bool, what: str) -> None:
         if not cond:
@@ -1902,6 +1927,169 @@ class Smoke:
         self._train_breakdown(lm, state, batches[0])
         self._train_checkpoint(lm, state, step_fn, batches[TRAIN_STEPS])
 
+    # -- mesh --------------------------------------------------------------
+    def mesh(self):
+        """The LM substrate on the (1, 1) NCCL mesh of ``make_host_mesh()``
+        against ``mesh=None``: (a) training, (b) serving a MoE.  Counts
+        every kernel's launches over the phase (must be 0)."""
+        torch = self.torch
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_host_mesh
+        counters = self._kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        self._readout.fused_launches = 0
+        store = ROOT / "build" / "mesh_store"
+        store.parent.mkdir(exist_ok=True)
+        store.unlink(missing_ok=True)
+        dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh()
+            print(f"mesh on {self.card}: {mesh.shape} over "
+                  f"{mesh.size} rank, backend {dist.get_backend()}, "
+                  f"torch {torch.__version__}")
+            self._mesh_train(mesh)
+            self._mesh_decode(mesh)
+        finally:
+            dist.destroy_process_group()
+            store.unlink(missing_ok=True)
+        made = {k: fn.launches for k, fn in counters.items()}
+        made["rollout_readout"] += self._readout.fused_launches
+        self.mesh_launches = made
+        print(f"launches of B1-B5 and the readout: {made}")
+        self.check(not any(made.values()), "the mesh phase launched a "
+                   "reservoir kernel")
+
+    @staticmethod
+    def _local(t):
+        """A DTensor's shard (on a mesh of one: the whole tensor)."""
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    def _mesh_train(self, mesh):
+        """(a) MESH_TRAIN_STEPS steps of stablelm-1.6b (the train phase's
+        configuration and batches) without a mesh, then on it, from the
+        same seeded parameters."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.data.pipeline import LMStreamConfig, lm_batch
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.models.common import tree_leaves_with_path
+        from repro_torch.models.transformer import LM, lm_param_shardings
+        from repro_torch.optim import adamw
+        from repro_torch.parallel.sharding import distribute_tree
+        cfg = get_config(TRAIN_ARCH)
+        lm = LM(cfg, device=self.dev)
+        stream = LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH, seed=0,
+                                structure=0.8)
+        batches = [{"tokens": torch.as_tensor(
+            lm_batch(stream, i)["tokens"], dtype=torch.long,
+            device=self.dev)} for i in range(MESH_TRAIN_STEPS)]
+        runs = {}
+        for name, m in (("none", None), ("mesh", mesh)):
+            torch.cuda.empty_cache()
+            params = lm.init(torch.Generator(device=self.dev).manual_seed(0)
+                             ).params
+            if m is not None:
+                params = distribute_tree(params, lm_param_shardings(cfg, m))
+            state = {"params": params, "opt": adamw.init_state(params)}
+            step_fn = make_train_step(lm, m, adamw.AdamWConfig(**TRAIN_OPT))
+            ev = self._events(2 * MESH_TRAIN_STEPS)
+            metrics = []
+            for i, batch in enumerate(batches):
+                ev[2 * i].record()
+                state, met = step_fn(state, batch)
+                ev[2 * i + 1].record()
+                metrics.append({k: self._local(v) for k, v in met.items()})
+            torch.cuda.synchronize()
+            ms = [ev[2 * i].elapsed_time(ev[2 * i + 1])
+                  for i in range(MESH_TRAIN_STEPS)]
+            leaves = {p: self._local(x) for p, x in
+                      tree_leaves_with_path(state["params"])}
+            runs[name] = (metrics, ms, leaves)
+            print(f"(a) {TRAIN_ARCH} {'on the mesh' if m else 'mesh=None'}:"
+                  f" ms per step {[round(t, 2) for t in ms]}, loss "
+                  f"{[float(x['loss']) for x in metrics]}, grad norm "
+                  f"{[float(x['grad_norm']) for x in metrics]}")
+            del state, params, step_fn
+        (m0, ms0, p0), (m1, ms1, p1) = runs["none"], runs["mesh"]
+        same = [all(torch.equal(a[k], b[k]) for k in ("loss", "grad_norm"))
+                for a, b in zip(m0, m1)]
+        equal = sum(torch.equal(p0[k], p1[k]) for k in p0)
+        checksum = {n: float(sum(x.double().sum() for x in r[2].values()))
+                    for n, r in runs.items()}
+        print(f"    loss and grad norm bit for bit per step: {same}; "
+              f"{equal} of {len(p0)} parameter leaves equal bit for bit "
+              f"(checksums {checksum['none']!r} / {checksum['mesh']!r})")
+        self.check(all(same) and equal == len(p0) == len(p1),
+                   "the (1, 1) mesh's train steps differ from mesh=None")
+        if equal != len(p0):
+            worst = max(float((p0[k].double() - p1[k].double()).abs().max())
+                        for k in p0)
+            print(f"    largest parameter difference {worst!r}")
+        for tag, ms in (("mesh=None", ms0), ("the mesh", ms1)):
+            print(f"    {tag}: {ms[0]:.2f} ms first step, "
+                  f"{float(np.median(ms[1:])):.2f} ms median of steps 2-"
+                  f"{MESH_TRAIN_STEPS}")
+        del runs, p0, p1
+        torch.cuda.empty_cache()
+
+    def _mesh_decode(self, mesh):
+        """(b) olmoe-1b-7b at full width: a MESH_PROMPT prefill and
+        MESH_DECODE_STEPS greedy decode steps without a mesh, then on it,
+        from the same parameters (placed on the mesh of one, no copy)."""
+        torch = self.torch
+        from repro_torch.launch.steps import (make_decode_step,
+                                              make_prefill_step)
+        from repro_torch.models.transformer import lm_param_shardings
+        from repro_torch.parallel.sharding import distribute_tree
+        lm, params, _ = self._lm_load(MESH_ARCH, "(b)")
+        b, s = MESH_PROMPT
+        prompt = torch.as_tensor(np.random.default_rng(7).integers(
+            0, lm.cfg.vocab_size, (b, s)), device=self.dev)
+        runs = {}
+        for name, m in (("none", None), ("mesh", mesh)):
+            p = (params if m is None else
+                 distribute_tree(params, lm_param_shardings(lm.cfg, m)))
+            prefill = make_prefill_step(lm, m, s + MESH_DECODE_STEPS)
+            decode = make_decode_step(lm, m)
+            ev = self._events(2 * (MESH_DECODE_STEPS + 1))
+            ev[0].record()
+            logits, caches = prefill(p, {"tokens": prompt})
+            ev[1].record()
+            toks = []
+            for i in range(MESH_DECODE_STEPS):
+                tok = self._local(logits).argmax(-1)
+                toks.append(tok)
+                ev[2 * i + 2].record()
+                logits, caches = decode(p, caches, tok)
+                ev[2 * i + 3].record()
+            torch.cuda.synchronize()
+            ms = [ev[2 * i].elapsed_time(ev[2 * i + 1])
+                  for i in range(MESH_DECODE_STEPS + 1)]
+            runs[name] = (torch.cat(toks, 1), self._local(logits), ms)
+            print(f"(b) {MESH_ARCH} {'on the mesh' if m else 'mesh=None'}: "
+                  f"prefill {b} x {s} {ms[0]:.2f} ms, decode ms per step "
+                  f"{[round(t, 2) for t in ms[1:]]}")
+            del caches, logits, p
+        (t0, l0, ms0), (t1, l1, ms1) = runs["none"], runs["mesh"]
+        tok_eq = bool(torch.equal(t0, t1))
+        log_eq = bool(torch.equal(l0, l1))
+        print(f"    {MESH_DECODE_STEPS} greedy tokens equal: {tok_eq}; last "
+              f"logits bit for bit: {log_eq}"
+              + ("" if log_eq else f" (largest difference "
+                 f"{float((l0.float() - l1.float()).abs().max())!r})"))
+        self.check(tok_eq and log_eq, "the (1, 1) mesh's decode differs "
+                   "from mesh=None")
+        med = {k: float(np.median(v[2][2:])) for k, v in runs.items()}
+        print(f"    decode ms per step (median of steps 2-"
+              f"{MESH_DECODE_STEPS}): mesh=None {med['none']:.2f}, the mesh "
+              f"{med['mesh']:.2f} ({med['mesh'] / med['none']:.2f}x: "
+              f"DTensor's host overhead)")
+        del params, runs
+        torch.cuda.empty_cache()
+
     def _train_breakdown(self, lm, state, batch):
         """Where a step's time goes (CUDA events, ms, each after a warm-up
         call): one microbatch's forward alone and with its backward, the
@@ -2908,6 +3096,7 @@ class Smoke:
                 launches_lm_serve=self.lm_launches.get(name, 0),
                 launches_lm_blocks=self.blocks_launches.get(name, 0),
                 launches_lm_train=self.train_launches.get(name, 0),
+                launches_lm_mesh=self.mesh_launches.get(name, 0),
                 max_abs_err=max(v for v in e.values() if v is not None),
                 **{f"max_abs_err_{m}": v for m, v in e.items()},
                 **self.kernels[name]))
@@ -2944,7 +3133,7 @@ def main() -> int:
                   smoke.baseline_twins, smoke.fixed_matrix, smoke.times,
                   smoke.fixed_times, smoke.autotune, smoke.sharded,
                   smoke.serve_layer, smoke.lm_serve, smoke.lm_blocks,
-                  smoke.train):
+                  smoke.train, smoke.mesh):
         t0 = time.perf_counter()
         print(f"== {phase.__name__}")
         try:

@@ -15,8 +15,13 @@ bytes (``uint8`` of shape ``shape + (2,)``, logical dtype ``"bfloat16"``),
 so a step written by either package restores in the other bit for bit.
 Leaves are tensors (or NumPy arrays); ``restore`` returns tensors placed
 like the leaves of ``tree_like`` and reads bf16 through
-``torch.from_numpy(...).view(torch.bfloat16)``.  Placing leaves by
-sharding (``shardings=``) waits for the device mesh of ROADMAP A12f.
+``torch.from_numpy(...).view(torch.bfloat16)``.
+
+On a device mesh a leaf may be a DTensor: ``save`` gathers each one whole
+(a collective, so every rank calls it) and rank 0 writes the step.
+``restore(shardings=)`` places each leaf by its ``NamedSharding``, every
+rank taking its own shard of the stored array -- how a re-planned mesh
+reloads a checkpoint written under another topology.
 """
 
 from __future__ import annotations
@@ -74,8 +79,42 @@ def _from_numpy(arr: np.ndarray, logical: str) -> torch.Tensor:
     return torch.from_numpy(arr).view(torch.bfloat16)[..., 0]
 
 
+def _gather(tree: Any) -> tuple:
+    """(the tree with each DTensor leaf gathered whole, the device mesh of
+    the first one or ``None``)."""
+    from torch.distributed.tensor import DTensor
+
+    meshes = []
+
+    def whole(x):
+        if isinstance(x, DTensor):
+            meshes.append(x.device_mesh)
+            return x.full_tensor()
+        return x
+
+    tree = _map(whole, tree)
+    return tree, (meshes[0] if meshes else None)
+
+
+def _writer(mesh) -> bool:
+    """The rank that writes a gathered tree: the mesh's first."""
+    return mesh is None or not any(mesh.get_coordinate())
+
+
 def save(tree: Any, directory: str | Path, step: int) -> Path:
     d = Path(directory) / f"step_{step:08d}"
+    tree, mesh = _gather(tree)
+    if mesh is None:
+        return _write(tree, d, step)
+    import torch.distributed as dist
+    if _writer(mesh):
+        _write(tree, d, step)
+    for i in range(mesh.ndim):      # every rank of the mesh waits for it
+        dist.barrier(group=mesh.get_group(i))
+    return d
+
+
+def _write(tree: Any, d: Path, step: int) -> Path:
     tmp = d.with_suffix(".tmp")
     if tmp.exists():
         shutil.rmtree(tmp)
@@ -105,8 +144,10 @@ def _host_copy(x):
 
 
 def save_async(tree: Any, directory: str | Path, step: int) -> threading.Thread:
+    tree, mesh = _gather(tree)
     host_tree = _map(_host_copy, tree)
-    t = threading.Thread(target=save, args=(host_tree, directory, step),
+    target = save if _writer(mesh) else (lambda *a: None)
+    t = threading.Thread(target=target, args=(host_tree, directory, step),
                          daemon=True)
     t.start()
     return t
@@ -157,15 +198,18 @@ def restore(tree_like: Any, directory: str | Path, step: int,
 
     Each leaf comes back as a tensor in its stored dtype, on the device of
     the matching ``tree_like`` leaf when that is a tensor (else on the
-    CPU).  ``shardings`` (the reference's pytree of NamedSharding, how a
-    re-planned mesh reloads a checkpoint) must be ``None``.
+    CPU).  ``shardings``: optional matching tree of ``NamedSharding``
+    (``parallel/sharding.py``) -- each leaf with one becomes a DTensor on
+    its mesh's device, every rank keeping its own shard of the stored
+    array, which is how a *re-planned* (elastic) mesh reloads a checkpoint
+    written under a different topology.
     """
-    if shardings is not None:
-        raise NotImplementedError(
-            "A12f: restoring onto a device mesh (shardings=) is not ported "
-            "yet; pass shardings=None")
+    from torch.distributed.tensor import distribute_tensor
+
     d = Path(directory) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
+    flat_sh = (dict(tree_leaves_with_path(shardings))
+               if shardings is not None else {})
     pairs = []
     for path, leaf in tree_leaves_with_path(tree_like):
         name = "/".join(str(p) for p in path).replace("/", "__")
@@ -175,7 +219,12 @@ def restore(tree_like: Any, directory: str | Path, step: int,
         if tuple(out.shape) != want:
             raise ValueError(f"{name}: checkpoint {tuple(out.shape)} != "
                              f"model {want}")
-        if isinstance(leaf, torch.Tensor):
+        sh = flat_sh.get(path)
+        if sh is not None:
+            out = distribute_tensor(out.to(sh.mesh.device),
+                                    sh.mesh.device_mesh, sh.placements,
+                                    src_data_rank=None)
+        elif isinstance(leaf, torch.Tensor):
             out = out.to(leaf.device)
         pairs.append((path, out))
     return _unflatten_like(tree_like, iter(pairs))

@@ -3,8 +3,8 @@
 Every parameter is created together with a *logical axes* tuple (one entry
 per tensor dim, e.g. ``("embed", "ffn")``), the JAX package's vocabulary,
 so a tree of either package names the same dims.  On one device the axes
-are carried and not read; the TP/FSDP rules that map them to a mesh come
-with ROADMAP A12f.
+are carried and not read; on a device mesh ``parallel/sharding.py`` maps
+them to placements (TP over 'model', FSDP over the data axes).
 
 Initializers take an explicit ``torch.Generator`` as ``key`` (the JAX
 package's PRNG key) and draw on the generator's device.  ``lead`` prefixes
@@ -28,6 +28,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel import act
 
 __all__ = ["ParamsWithAxes", "dense_init", "zeros_init", "ones_init",
            "split_tree", "tree_map", "tree_leaves", "tree_leaves_with_path",
@@ -260,9 +261,49 @@ def logits_from_embedding(x, table, softcap=None):
 
 def _nll(logits, labels):
     """(logsumexp, the label's logit) of float32 logits over the vocab."""
+    if act.is_dtensor(logits):
+        return _nll_on_mesh(logits, labels)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return lse, ll
+
+
+def _nll_on_mesh(logits, labels):
+    """``_nll`` of DTensor logits (B, S, V), a local region over the batch
+    shards.  A vocab split over ``model`` (the logits anchor's placement)
+    takes the logsumexp as ``torch.logsumexp`` computes it -- the max,
+    then the log of the summed exponentials -- with the max and the sum
+    reduced across ``model``, and the label's logit from the rank whose
+    slice of the vocab holds it (the others add 0): DTensor's sharded
+    ``gather`` leaves a masked partial that it cannot reduce.  A whole
+    vocab runs the plain ``_nll`` on each shard."""
+    from torch.distributed.tensor import Partial, Shard
+
+    ctx = act.current()
+    mesh = ctx["mesh"]
+    dp = act.data_entry(ctx, logits.shape[0])
+    vocab = act.model_entry(ctx, logits.shape[2])
+    pl = act.region(ctx, 3, d0=dp, d2=vocab)
+    rows = act.region(ctx, 2, d0=dp)
+    if not any(isinstance(p, Shard) and p.dim == 2 for p in pl):
+        lse, ll = _nll(act.to_local(logits, mesh, pl),
+                       act.to_local(labels, mesh, rows))
+        return act.from_local(lse, mesh, rows), act.from_local(ll, mesh,
+                                                               rows)
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    local = act.to_local(logits, mesh, pl)
+    lab = act.to_local(labels, mesh, rows).long()
+    width = local.shape[-1]
+    lo = mesh.coordinate()[vocab] * width
+    rel = lab - lo
+    mine = (rel >= 0) & (rel < width)
+    ll = torch.gather(local, -1, torch.clamp(rel, 0, width - 1)[..., None])
+    ll = torch.where(mine, ll[..., 0], torch.zeros((), dtype=ll.dtype))
+    ll = act.from_local(ll, mesh, tuple(
+        Partial() if n == vocab else p for n, p in zip(mesh.axis_names,
+                                                       rows)))
+    return lse, ll.redistribute(mesh.device_mesh, rows)
 
 
 def cross_entropy(logits, labels, mask=None, z_loss=0.0):
@@ -287,8 +328,9 @@ def cross_entropy_streamed(x, table, labels, mask=None, softcap=None,
     chunk's are made, and each full chunk's loss runs under
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so its
     float32 logits are recomputed in the backward pass and only one
-    chunk's are ever live.  The reference's vocab-sharding anchor on the
-    logits (``shard_spec``) waits for the mesh rules of ROADMAP A12f1.
+    chunk's are ever live.  On a mesh each chunk's logits are anchored as
+    the reference anchors them (``shard_spec``: batch over the data axes,
+    vocab over 'model').
     """
     b, s, d = x.shape
     chunk = min(chunk, s)
@@ -299,6 +341,7 @@ def cross_entropy_streamed(x, table, labels, mask=None, softcap=None,
         logits = xs @ table.T.to(xs.dtype)
         if softcap is not None:
             logits = torch.tanh(logits / softcap) * softcap
+        logits = act.shard_spec(logits, d0="data", d2="model")
         lse, ll = _nll(logits.float(), ls)
         loss = (lse - ll) * ms
         return loss.sum(), ms.sum()
@@ -312,7 +355,8 @@ def cross_entropy_streamed(x, table, labels, mask=None, softcap=None,
         sl = slice(i * chunk, (i + 1) * chunk)
         ms = mask[:, sl].float() if mask is not None else ones(chunk)
         dl, dc = torch_checkpoint.checkpoint(
-            chunk_loss, x[:, sl], labels[:, sl], ms, use_reentrant=False)
+            act.keep_context(chunk_loss), x[:, sl], labels[:, sl], ms,
+            use_reentrant=False)
         tot, cnt = tot + dl, cnt + dc
     if rem:
         ms = mask[:, n * chunk:].float() if mask is not None else ones(rem)

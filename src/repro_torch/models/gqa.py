@@ -9,6 +9,7 @@ import torch
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (apply_rope, dense_init, ones_init,
                                        rmsnorm)
+from repro_torch.parallel import act
 
 __all__ = ["init_attn", "attn_forward", "attn_decode", "init_cross_attn",
            "cross_attn_forward", "encode_kv"]
@@ -74,8 +75,10 @@ def attn_forward(x, p, cfg, *, window: Optional[int] = None, causal=True,
         attn_lib.cache_prefill(cache, k, v, 0)
     else:  # ring cache shorter than the prefill (sliding window)
         attn_lib.cache_prefill(cache, k[:, -length:], v[:, -length:], 0)
-        cache["pos"][:] = torch.arange(s - length, s, dtype=torch.int32,
-                                       device=x.device)
+        pos = cache["pos"]
+        pos = pos.to_local() if act.is_dtensor(pos) else pos
+        pos[:] = torch.arange(s - length, s, dtype=torch.int32,
+                              device=pos.device)
     return out, cache
 
 

@@ -24,6 +24,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (apply_norm, apply_rope, dense_init,
                                        norm_init)
+from repro_torch.parallel import act
 
 __all__ = ["init_mla", "init_cache", "mla_forward", "mla_decode"]
 
@@ -107,6 +108,12 @@ def mla_forward(x, p, cfg, *, q_offset: int = 0, make_cache=False,
         return out, None
     if cache is None:
         cache = init_cache(b, cache_len or s, cfg, x.dtype, device=x.device)
+    if act.is_dtensor(cache["c_kv"]):    # a mesh: each rank its part
+        attn_lib.write_rows(cache["c_kv"], c_kv, 0)
+        attn_lib.write_rows(cache["k_rope"], k_rope[:, :, 0, :], 0)
+        attn_lib.write_rows(cache["pos"], torch.arange(
+            s, dtype=torch.int32, device=x.device)[None].expand(b, s), 0)
+        return out, cache
     cache["c_kv"][:, :s] = c_kv
     cache["k_rope"][:, :s] = k_rope[:, :, 0, :]
     cache["pos"][:, :s] = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -123,6 +130,11 @@ def mla_decode(x, p, cfg, cache, index):
     positions = index.view(1, 1).expand(b, 1)
     q_nope, q_rope, c_kv_new, k_rope_new = _latents(x, p, cfg, positions)
 
+    scale = float(np.float32(1.0 / np.sqrt(m.nope_dim + m.rope_dim)))
+    if act.is_dtensor(cache["c_kv"]):
+        return _mla_decode_on_mesh(x, p, cfg, cache, index, q_nope, q_rope,
+                                   c_kv_new, k_rope_new, scale), cache
+
     # append to the latent cache
     slot = (index % cache["c_kv"].shape[1]).long().view(1)
     cache["c_kv"].index_copy_(1, slot, c_kv_new.to(cache["c_kv"].dtype))
@@ -134,7 +146,6 @@ def mla_decode(x, p, cfg, cache, index):
     # (float32 products of model-dtype operands, as the reference asks)
     q_lat = torch.einsum("bshk,lhk->bshl", q_nope.float(),
                          p["w_uk"].to(x.dtype).float())
-    scale = float(np.float32(1.0 / np.sqrt(m.nope_dim + m.rope_dim)))
     s_nope = torch.einsum("bshl,btl->bhst", q_lat, cache["c_kv"].float())
     s_rope = torch.einsum("bshk,btk->bhst", q_rope.float(),
                           cache["k_rope"].float())
@@ -148,3 +159,43 @@ def mla_decode(x, p, cfg, cache, index):
     o = torch.einsum("bshl,lhk->bshk", o_lat, p["w_uv"].to(x.dtype))
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
     return out, cache
+
+
+def _mla_decode_on_mesh(x, p, cfg, cache, index, q_nope, q_rope, c_kv_new,
+                        k_rope_new, scale):
+    """``mla_decode`` on a mesh: the latent cache written by each rank in
+    its part (batch over the data axes, the sequence over 'model' when it
+    divides); the scores and the latent-space P·V over each rank's keys,
+    the softmax and the sum reduced across the sequence's mesh dim."""
+    b = x.shape[0]
+    length = cache["c_kv"].shape[1]
+    dev = cache["pos"].to_local().device
+    index = torch.as_tensor(index, dtype=torch.int32, device=dev)
+    attn_lib.write_slot(cache["c_kv"], c_kv_new, index, length)
+    attn_lib.write_slot(cache["k_rope"], k_rope_new[:, :, 0, :], index,
+                        length)
+    attn_lib.write_slot(cache["pos"], index.view(1, 1).expand(b, 1), index,
+                        length)
+    q_lat = torch.einsum("bshk,lhk->bshl", q_nope.float(),
+                         p["w_uk"].to(x.dtype).float())
+    leaf = cache["c_kv"]
+    ql = attn_lib.local_source(q_lat, leaf)
+    qr = attn_lib.local_source(q_rope.float(), leaf)
+    ckv, kr = leaf.to_local(), cache["k_rope"].to_local()
+    pos = attn_lib.local_positions(leaf, cache["pos"])
+    s = (torch.einsum("bshl,btl->bhst", ql, ckv.float())
+         + torch.einsum("bshk,btk->bhst", qr, kr.float())) * scale
+    valid = (pos >= 0) & (pos <= index)
+    s = torch.where(valid[:, None, None, :], s, attn_lib.NEG_INF)
+    split = attn_lib._seq_split(leaf) is not None
+    pr = (attn_lib.seq_softmax(s, leaf) if split
+          else torch.softmax(s, dim=-1)).to(x.dtype)
+    if split:
+        o_lat = attn_lib.seq_sum(torch.einsum(
+            "bhst,btl->bshl", pr.float(), ckv.float()), leaf).to(x.dtype)
+    else:
+        o_lat = torch.einsum("bhst,btl->bshl", pr, ckv)
+    o_lat = act.from_local(o_lat, leaf.device_mesh,
+                           attn_lib.whole_sequence(leaf))
+    o = torch.einsum("bshl,lhk->bshk", o_lat, p["w_uv"].to(x.dtype))
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))

@@ -23,8 +23,14 @@ The JAX package's arithmetic, with three PyTorch-specific choices:
   writes collide) and the ``k`` of a token are summed in rank order, so a
   step repeats bit for bit.
 
-Only ``mesh=None`` (or a trivial mesh) runs: expert parallelism under a
-device mesh is ROADMAP A12f.
+Distribution: on a mesh with more than one device on its data or model
+axes the block runs as a local region per rank, the reference's
+``shard_map``: tokens sharded over the data axes (replicated over
+'model'), experts over 'model' (EP).  Each rank gathers its experts'
+FSDP-sharded weights over the data axes, routes its own tokens, computes
+its experts' partial output at the per-shard capacity, and the partial
+outputs are summed over 'model'; the aux loss is averaged over the data
+axes.  On a trivial mesh the ``mesh=None`` path runs on the local shards.
 """
 
 from __future__ import annotations
@@ -34,11 +40,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import dense_init
+from repro_torch.parallel import act
 
 __all__ = ["init_moe", "moe_forward"]
-
-_MESH = ("A12f: expert parallelism over a device mesh (the reference's "
-         "shard_map EP path) is not ported yet; pass mesh=None")
 
 
 def init_moe(key, cfg, dtype=torch.float32, *, lead=(), device=None):
@@ -146,11 +150,11 @@ def moe_forward(x, p, cfg, mesh=None, data_axes=("data",), model_axis="model",
                 fsdp_gather: bool = True, *, aux: bool = True):
     """x: (B, S, d) -> (y, aux_loss).
 
-    A mesh with more than one device on its data or model axes (expert
-    parallelism) raises ``NotImplementedError`` naming ROADMAP A12f; on
-    ``mesh=None`` the reference's local path runs.  ``aux=False`` (the
-    serving path, which drops the loss) skips computing it and returns
-    ``None`` in its place.
+    When ``mesh`` spans real data/model axes the block runs as per-rank
+    local regions (EP, ``_ep_forward``); otherwise it executes the same
+    math locally (on a trivial mesh, on the local shards).  ``aux=False``
+    (the serving path, which drops the loss) skips computing it and
+    returns ``None`` in its place.
     """
     m = cfg.moe
     b, s, d = x.shape
@@ -158,12 +162,14 @@ def moe_forward(x, p, cfg, mesh=None, data_axes=("data",), model_axis="model",
     if mesh is not None and (
             int(np.prod([mesh.shape[a] for a in data_axes])) > 1
             or mesh.shape[model_axis] > 1):
-        raise NotImplementedError(_MESH)
-    idx, gate, loss = _route(xt, p["router"], m, aux)
-    cap = int(np.ceil(xt.shape[0] * m.top_k * m.capacity_factor
-                      / m.n_experts))
-    y = _dispatch_compute(xt, idx, gate, p["w_gate"], p["w_up"], p["w_down"],
-                          0, m.n_experts, max(cap, 1))
+        # the expert weights arrive as stored (FSDP-sharded on d_model
+        # when ``fsdp_gather``); the region gathers whatever it needs
+        y, loss = _ep_forward(xt, p, m, mesh, tuple(data_axes), model_axis,
+                              aux)
+    elif mesh is not None and act.is_dtensor(xt):
+        y, loss = _trivial_mesh(xt, p, m, mesh, aux)
+    else:
+        y, loss = _local_forward(xt, p, m, aux)
     y = y.reshape(b, s, d)
     if m.n_shared:
         sh = p["shared"]
@@ -171,3 +177,87 @@ def moe_forward(x, p, cfg, mesh=None, data_axes=("data",), model_axis="model",
         u = x @ sh["w_up"].to(x.dtype)
         y = y + (g * u) @ sh["w_down"].to(x.dtype)
     return y, loss
+
+
+def _local_forward(xt, p, m, aux):
+    """The ``mesh=None`` path on (T, d) tokens."""
+    idx, gate, loss = _route(xt, p["router"], m, aux)
+    cap = int(np.ceil(xt.shape[0] * m.top_k * m.capacity_factor
+                      / m.n_experts))
+    y = _dispatch_compute(xt, idx, gate, p["w_gate"], p["w_up"], p["w_down"],
+                          0, m.n_experts, max(cap, 1))
+    return y, loss
+
+
+def _trivial_mesh(xt, p, m, mesh, aux):
+    """A mesh of one device: the local path on the (whole) local shards."""
+    from torch.distributed.tensor import Replicate
+
+    rep = (Replicate(),) * len(mesh.axis_names)
+    loc = lambda t: act.to_local(t, mesh, rep)
+    w = {k: loc(p[k]) for k in ("router", "w_gate", "w_up", "w_down")}
+    y, loss = _local_forward(loc(xt), w, m, aux)
+    return (act.from_local(y, mesh, rep),
+            None if loss is None else act.from_local(loss, mesh, rep))
+
+
+def _ep_forward(xt, p, m, mesh, data_axes, model_axis, aux):
+    """Expert parallelism, the reference's ``shard_map`` branch.
+
+    Each rank: tokens (T / n_data, d) of its data shard, the router
+    replicated, experts ``[index(model) * n_local, +n_local)`` with their
+    d_model dim gathered over the data axes when FSDP-sharded; capacity
+    ``max(ceil(t_local * k * cf / E), 4)`` per shard, not the
+    ``mesh=None`` capacity.  ``y`` is summed over 'model', the aux loss
+    averaged over the data axes.  Gradients leave the region as the
+    transpose of ``shard_map`` makes them: a weight replicated inside it
+    summed over the axes it is replicated on (``Partial``), the tokens'
+    summed over 'model'.
+    """
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    names = tuple(mesh.axis_names)
+    n_model = mesh.shape[model_axis]
+    n_data = int(np.prod([mesh.shape[a] for a in data_axes]))
+    assert m.n_experts % n_model == 0, (m.n_experts, n_model)
+    n_local = m.n_experts // n_model
+    t_local = xt.shape[0] // n_data
+    cap = max(int(np.ceil(t_local * m.top_k * m.capacity_factor
+                          / m.n_experts)), 4)
+
+    def pl(**dims):
+        out = [Replicate()] * len(names)
+        for axis, dim in dims.items():
+            out[names.index(axis)] = dim
+        return tuple(out)
+
+    tok = {a: Shard(0) for a in data_axes}
+    x_pl = pl(**tok)
+    x_l = act.to_local(xt, mesh, x_pl, pl(**tok, **{model_axis: Partial()}))
+    router = act.to_local(p["router"], mesh, pl(),
+                          pl(**{a: Partial() for a in names}))
+
+    def expert(w):
+        # experts over 'model'; a d_model dim FSDP-sharded over the data
+        # axes is gathered here (the reference's all_gather), and each
+        # data shard's tokens add their own term to the gradient
+        return act.to_local(w, mesh, pl(**{model_axis: Shard(0)}),
+                            pl(**{model_axis: Shard(0)},
+                               **{a: Partial() for a in data_axes}))
+
+    w_gate, w_up, w_down = (expert(p[k]) for k in ("w_gate", "w_up",
+                                                   "w_down"))
+    idx, gate, aux_l = _route(x_l, router, m, aux)
+    e_lo = mesh.coordinate()[model_axis] * n_local
+    y_l = _dispatch_compute(x_l, idx, gate, w_gate, w_up, w_down, e_lo,
+                            n_local, cap)
+    # psum over 'model': each model rank holds its experts' partial sum
+    y = act.from_local(y_l, mesh, pl(**tok, **{model_axis: Partial()}))
+    y = y.redistribute(mesh.device_mesh, x_pl)
+    if aux_l is None:
+        return y, None
+    # pmean over the data axes; every model rank holds the same value, so
+    # each carries 1/n_model of it (the cotangent shard_map gives it)
+    loss = act.from_local(aux_l / (n_data * n_model), mesh,
+                          pl(**{a: Partial() for a in names}))
+    return y, loss.redistribute(mesh.device_mesh, pl())

@@ -15,8 +15,15 @@ Block types:
   slstm  - xLSTM scalar-memory block
 An ``encoder`` config (whisper) adds the enc-dec stack: a bidirectional
 encoder over stub frame embeddings and a cross-attention after each
-decoder group.  Only a device mesh (TP/FSDP/EP, ROADMAP A12f) raises
-``NotImplementedError``.
+decoder group.
+
+On a device mesh (``ParallelCtx(mesh=)``, set up by the step builders)
+parameters, caches and activations are DTensors placed by the rules of
+``parallel/sharding.py``; the blocks run on them as on tensors, with the
+reference's activation anchors (``shard_batch`` at the embeddings and the
+layer carry) and local regions where the reference uses ``shard_map``
+(the MoE's expert parallelism, ``_slstm_sharded``).  Int8 serving leaves
+on a mesh wait for ROADMAP A12f3.
 
 ``LM`` keeps the JAX package's functional API: parameters are a nested
 dict of tensors, ``loss`` / ``prefill`` / ``decode_step`` take them as
@@ -53,14 +60,18 @@ from repro_torch.models.common import (ParamsWithAxes, apply_norm,
                                        mlp_init, norm_init, split_tree,
                                        tree_leaves, tree_map)
 from repro_torch.models.quantize import dequant_tree, is_quantized_leaf
+from repro_torch.parallel import act
+from repro_torch.parallel.sharding import (cache_sharding, distribute_tree,
+                                           param_shardings, placements)
 
-__all__ = ["LM", "ParallelCtx", "lm_params_from_numpy",
-           "train_state_from_numpy"]
+__all__ = ["LM", "ParallelCtx", "cache_spec", "lm_param_shardings",
+           "lm_params_from_numpy", "train_state_from_numpy"]
 
 # what the port does not run yet, by ROADMAP item
 _WAITS = {
-    "mesh": ("A12f: a device mesh (TP/FSDP/EP) is not ported yet; pass "
-             "mesh=None"),
+    "int8_mesh": ("A12f3: int8 frozen-weight leaves on a device mesh (the "
+                  "reference's quant_struct_like) are not ported yet; serve "
+                  "int8 with mesh=None"),
 }
 
 
@@ -72,9 +83,17 @@ class ParallelCtx:
     fsdp: bool = True
 
 
-def _check_ctx(ctx) -> None:
-    if ctx is not None and ctx.mesh is not None:
-        raise NotImplementedError(_WAITS["mesh"])
+def _check_leaves(params, ctx) -> None:
+    """Int8 leaves run on one device only (ROADMAP A12f3)."""
+    if ctx.mesh is None:
+        return
+    stack = [params]
+    while stack:
+        t = stack.pop()
+        if is_quantized_leaf(t):
+            raise NotImplementedError(_WAITS["int8_mesh"])
+        if isinstance(t, dict):
+            stack.extend(t.values())
 
 
 # ---------------------------------------------------------------------------
@@ -106,18 +125,45 @@ def _init_block(key, cfg: ModelConfig, kind: str, dtype, *, lead, device):
     return p
 
 
-def _slstm_sharded(h, mixer, cfg: ModelConfig, ctx: ParallelCtx):
-    """sLSTM; the reference runs it under ``shard_map`` on a mesh (one
-    recurrent-weight psum per block call), which waits for A12f."""
-    if ctx.mesh is not None:
-        raise NotImplementedError(_WAITS["mesh"])
-    return xlstm_lib.slstm_forward(h, mixer, cfg)
+def _slstm_sharded(h, mixer, cfg: ModelConfig, ctx: ParallelCtx,
+                   state=None):
+    """sLSTM as the reference runs it under ``shard_map`` (batch over the
+    data axes).
+
+    Each rank runs the time loop on its batch shard with the mixer's
+    weights gathered whole (the reference's replicated ``in_specs``); the
+    weights' gradient leaves the region ``Partial`` over the data axes, so
+    it is summed once per block call, as the transpose of ``shard_map``
+    sums it, never inside the time loop.  ``state`` (decode) is the
+    recurrent state, batch over the data axes too.
+    """
+    if ctx.mesh is None or not act.is_dtensor(h):
+        return xlstm_lib.slstm_forward(h, mixer, cfg, state)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = ctx.mesh
+    dp = ctx.data_axes if len(ctx.data_axes) > 1 else ctx.data_axes[0]
+    h_pl = placements((dp, None, None), mesh)
+    rep = (Replicate(),) * len(h_pl)
+    summed = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                   for p in h_pl)
+    h_l = act.to_local(h, mesh, h_pl)
+    mixer_l = tree_map(lambda w: act.to_local(w, mesh, rep, summed), mixer)
+    st_l = (None if state is None else
+            tree_map(lambda t: act.to_local(t, mesh, h_pl), state))
+    out, cache = xlstm_lib.slstm_forward(h_l, mixer_l, cfg, st_l)
+    return (act.from_local(out, mesh, h_pl),
+            tree_map(lambda t: act.from_local(t, mesh, h_pl), cache))
 
 
 def _store(cache, state) -> None:
     """A recurrent block's new state into its preallocated cache view."""
     for k, v in state.items():
-        cache[k].copy_(v)
+        c = cache[k]
+        if act.is_dtensor(c):     # shard into shard, placed as the cache
+            c.to_local().copy_(act.to_local(v, c.device_mesh, c.placements))
+        else:
+            c.copy_(v)
 
 
 def _ffn(x, p, cfg: ModelConfig, ctx: ParallelCtx, aux: bool = False):
@@ -190,7 +236,7 @@ def _block_decode(x, p, cfg: ModelConfig, kind: str, ctx: ParallelCtx,
         elif kind == "mlstm":
             out, state = xlstm_lib.mlstm_decode(h, p["mixer"], cfg, cache)
         elif kind == "slstm":
-            out, state = xlstm_lib.slstm_decode(h, p["mixer"], cfg, cache)
+            out, state = _slstm_sharded(h, p["mixer"], cfg, ctx, cache)
         else:
             raise ValueError(kind)
         _store(cache, state)
@@ -255,8 +301,9 @@ def _remat(fn, mode: str):
             _save_products)
 
     def wrapped(*args):
-        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False,
-                                           **kw)
+        # the recompute runs in the backward pass: keep the mesh context
+        return torch_checkpoint.checkpoint(act.keep_context(fn), *args,
+                                           use_reentrant=False, **kw)
 
     return wrapped
 
@@ -345,6 +392,7 @@ class LM:
         reference's ``_encdec_forward``)."""
         cfg = self.cfg
         for gp, cg, pattern in self._groups(params, caches):
+            x = act.shard_batch(x)  # anchor the layer carry
             for i, kind in enumerate(pattern):
                 x, _ = _block_forward(x, gp[f"b{i}"], cfg, kind, ctx,
                                       cache=cg[f"b{i}"], cache_len=cache_len)
@@ -358,6 +406,7 @@ class LM:
         does."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         gp = dequant_tree(gp, self.dtype)
+        x = act.shard_batch(x)  # anchor the layer carry
         for i, kind in enumerate(pattern):
             x, a = _block_forward(x, gp[f"b{i}"], self.cfg, kind, ctx)
             aux = aux + a
@@ -415,7 +464,7 @@ class LM:
         x = embed_lookup(tokens, table, scale_by_sqrt_dim=scale)
         if extra_embeds is not None:
             x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
-        return x
+        return act.shard_batch(x)
 
     def _logits(self, params, x):
         cfg = self.cfg
@@ -442,8 +491,8 @@ class LM:
         ``torch.autograd.grad`` over parameters that require grad
         (``make_train_step`` does).
         """
-        _check_ctx(ctx)
         ctx = ctx or ParallelCtx()
+        _check_leaves(params, ctx)
         cfg = self.cfg
         tokens = batch["tokens"]
         inp, labels = tokens[:, :-1], tokens[:, 1:]
@@ -469,10 +518,12 @@ class LM:
             return loss + aux
 
     # -- serving ---------------------------------------------------------------
-    def init_caches(self, batch, cache_len):
+    def init_caches(self, batch, cache_len, *, mesh=None):
         """Zeroed caches and recurrent states: one stacked (n_groups, ...)
         cache per block of the pattern, the tail's per block, and the
-        decode position 0."""
+        decode position 0.  On a ``mesh`` each cache leaf is a DTensor
+        placed by its role (``cache_spec``); the position stays a plain
+        0-dim tensor, the same on every rank."""
         cfg = self.cfg
 
         def one_group(pattern, lead):
@@ -481,11 +532,38 @@ class LM:
                                              device=self.device)
                     for i, kind in enumerate(pattern)}
 
+        if mesh is not None:
+            return self._mesh_caches(batch, cache_len, mesh)
         return {"groups": one_group(cfg.block_pattern, (cfg.n_groups,)),
                 "tail": (one_group(cfg.tail_pattern, ())
                          if cfg.tail_pattern else None),
                 "index": torch.zeros((), dtype=torch.int32,
                                      device=self.device)}
+
+    def _mesh_caches(self, batch, cache_len, mesh):
+        """``init_caches`` on a mesh: each rank allocates only its shard
+        (on the ``meta`` device first for the global shapes)."""
+        cfg = self.cfg
+        meta = LM(cfg, device="meta")
+        like = meta.init_caches(batch, cache_len)
+
+        def place(path, t):
+            spec = cache_spec(path, tuple(t.shape), cfg, mesh)
+            pl = placements(spec, mesh)
+            shape = list(t.shape)
+            for i, p in enumerate(pl):
+                if hasattr(p, "dim"):
+                    shape[p.dim] //= mesh.device_mesh.size(i)
+            fill = -1 if path[-1] == "pos" else 0
+            local = torch.full(shape, fill, dtype=t.dtype,
+                               device=self.device)
+            return act.from_local(local, mesh, pl)
+
+        out = {}
+        for key in ("groups", "tail"):
+            out[key] = _map_path(place, like[key], (key,))
+        out["index"] = torch.zeros((), dtype=torch.int32, device=self.device)
+        return out
 
     def prefill(self, params, batch, cache_len, ctx=None):
         """Forward the prompt, building caches. Returns (last_logits, caches).
@@ -495,14 +573,14 @@ class LM:
         an enc-dec config ``batch["frames"]`` (B, T, d), whose encoder
         output the caches keep under ``"enc"``.
         """
-        _check_ctx(ctx)
         ctx = ctx or ParallelCtx()
+        _check_leaves(params, ctx)
         cfg = self.cfg
         tokens = batch["tokens"]
         extra = batch.get("patches") if cfg.frontend == "vision" else None
         with ieee_fp32(self.device):
             x = self._embed(params, tokens, extra)
-            caches = self.init_caches(x.shape[0], cache_len)
+            caches = self.init_caches(x.shape[0], cache_len, mesh=ctx.mesh)
             enc = None
             if cfg.encoder is not None:
                 enc = self._encode(params, batch["frames"], ctx)
@@ -515,8 +593,8 @@ class LM:
     def decode_step(self, params, caches, token, ctx=None):
         """token: (B, 1). Returns (logits (B,1,V), caches), the caches
         advanced in place by one position."""
-        _check_ctx(ctx)
         ctx = ctx or ParallelCtx()
+        _check_leaves(params, ctx)
         cfg = self.cfg
         index = caches["index"]
         enc = caches.get("enc")
@@ -545,14 +623,70 @@ class LM:
         return sum(int(a.numel()) for a in tree_leaves(params))
 
 
-def lm_params_from_numpy(tree, cfg: ModelConfig, *, device=None):
+def _map_path(fn, tree, path=()):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def cache_spec(path: tuple, shape: tuple, cfg: ModelConfig, mesh) -> tuple:
+    """A cache leaf's spec by its structural role (the reference's
+    ``launch/specs._cache_leaf_sharding``): k/v batch over the data axes
+    and kv heads over ``model`` (else the sequence), latent caches the
+    sequence over ``model``, positions and the encoder output the batch
+    only, RG-LRU state its width, xLSTM state its heads.  A stacked group
+    cache keeps its leading layer dim replicated."""
+    name = path[-1] if path else ""
+    off = 1 if "groups" in path else 0
+    rank = len(shape)
+
+    def build(**kw):
+        inner = cache_sharding(mesh, shape[off:], batch_dim=0, **kw).spec
+        return ((None,) * off + tuple(inner)
+                + (None,) * (rank - off - len(inner)))
+
+    if name in ("k", "v") and rank - off == 4:
+        return build(n_kv=cfg.n_kv_heads, kv_dim=2, seq_dim=1)
+    if name in ("c_kv", "k_rope") and rank - off == 3:
+        return build(seq_dim=1)
+    if name in ("pos", "enc"):
+        return build()
+    if name in ("h", "conv"):
+        return build(n_kv=cfg.lru_dim, kv_dim=rank - off - 1)
+    if name in ("c", "n", "m") and rank - off >= 2:
+        return build(n_kv=cfg.n_heads, kv_dim=1)
+    return (None,) * rank
+
+
+def lm_param_shardings(cfg: ModelConfig, mesh, fsdp: Optional[bool] = None,
+                       expert_fsdp: Optional[bool] = None):
+    """The tree of ``NamedSharding`` for ``cfg``'s parameters on ``mesh``
+    (the reference's ``launch/specs.params_specs``): ``param_shardings``
+    of the logical axes with ``use_tp = cfg.use_tp`` and, by default,
+    ``fsdp = cfg.fsdp`` and ``expert_fsdp = cfg.expert_fsdp``."""
+    pa = LM(cfg, device="meta")._init(torch.Generator(),
+                                      torch.device("meta"))
+    return param_shardings(
+        pa.axes, pa.params, mesh, fsdp=cfg.fsdp if fsdp is None else fsdp,
+        use_tp=cfg.use_tp,
+        expert_fsdp=cfg.expert_fsdp if expert_fsdp is None else expert_fsdp)
+
+
+def lm_params_from_numpy(tree, cfg: ModelConfig, *, device=None, mesh=None,
+                         shardings=None):
     """The JAX package's LM params for ``cfg`` (a nested dict of NumPy
     arrays, floats as float32) -> the port's, on ``device``.  Each float
     leaf takes the dtype of the matching leaf of the port's own tree
     (built on the ``meta`` device): the model's dtype for weights, float32
     where both packages keep it (norms, the MoE router, xLSTM's gate
     projections and biases, RG-LRU's ``lam``); bf16 -> float32 -> bf16 is
-    exact.  Int8 ``{"q", "scale"}`` leaves are carried as they are."""
+    exact.  Int8 ``{"q", "scale"}`` leaves are carried as they are.
+
+    With a ``mesh`` each leaf becomes a DTensor placed by ``shardings``
+    (default ``lm_param_shardings(cfg, mesh)``): each rank keeps its own
+    shard of the NumPy array (int8 leaves on a mesh wait for A12f3)."""
     dev = resolve_device(device)
     lm = LM(cfg, device="meta")
     like = lm._init(torch.Generator(), torch.device("meta")).params
@@ -571,15 +705,22 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, *, device=None):
                 device=dev, dtype=ref.dtype)
         return torch.tensor(a, device=dev)
 
-    return walk(tree, like)
+    out = walk(tree, like)
+    if mesh is None:
+        return out
+    _check_leaves(out, ParallelCtx(mesh=mesh))
+    return distribute_tree(out, shardings or lm_param_shardings(cfg, mesh))
 
 
-def train_state_from_numpy(state, cfg: ModelConfig, *, device=None):
+def train_state_from_numpy(state, cfg: ModelConfig, *, device=None,
+                           mesh=None):
     """The JAX package's train state ``{"params", "opt": {"m", "v",
     "step"}}`` (NumPy leaves, floats as float32) -> the port's, on
     ``device``: the parameters through ``lm_params_from_numpy`` (the
     port's own dtypes), ``m`` and ``v`` in ``cfg.opt_dtype``, ``step`` a
-    0-dim int32 tensor."""
+    0-dim int32 tensor.  On a ``mesh`` the parameters and both moments are
+    placed by ``lm_param_shardings(cfg, mesh)``; ``step`` stays a plain
+    tensor, the same on every rank."""
     dev = resolve_device(device)
     opt_dtype = (torch.bfloat16 if cfg.opt_dtype == "bfloat16"
                  else torch.float32)
@@ -588,8 +729,12 @@ def train_state_from_numpy(state, cfg: ModelConfig, *, device=None):
     moment = lambda a: torch.tensor(np.asarray(a, np.float32)).to(
         device=dev, dtype=opt_dtype)
     opt = state["opt"]
-    return {"params": lm_params_from_numpy(state["params"], cfg, device=dev),
-            "opt": {"m": tree_map(moment, opt["m"]),
-                    "v": tree_map(moment, opt["v"]),
+    m, v = tree_map(moment, opt["m"]), tree_map(moment, opt["v"])
+    if mesh is not None:
+        sh = lm_param_shardings(cfg, mesh)
+        m, v = distribute_tree(m, sh), distribute_tree(v, sh)
+    return {"params": lm_params_from_numpy(state["params"], cfg, device=dev,
+                                           mesh=mesh),
+            "opt": {"m": m, "v": v,
                     "step": torch.tensor(np.asarray(opt["step"], np.int32),
                                          device=dev)}}

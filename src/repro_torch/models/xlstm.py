@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.models.common import (apply_norm, dense_init, norm_init,
                                        zeros_init)
+from repro_torch.parallel import act
 
 __all__ = ["NEG", "init_mlstm", "mlstm_chunk_forward", "mlstm_decode",
            "init_mlstm_state", "init_slstm", "slstm_forward", "slstm_decode",
@@ -131,6 +132,17 @@ def _mlstm_chunk(carry, qc, kc, vc, ic, fc):
     return (c_new, n_new, m_end), h_out
 
 
+def _mlstm_chunks(carry, q, k, v, it, ft, l: int):
+    """The chunk loop over the sequence: ((B,S,H,hd) outputs, carry)."""
+    hs = []
+    for c in range(q.shape[1] // l):
+        sl = slice(c * l, (c + 1) * l)
+        carry, h_out = _mlstm_chunk(carry, q[:, sl], k[:, sl], v[:, sl],
+                                    it[:, sl], ft[:, sl])
+        hs.append(h_out)
+    return torch.cat(hs, dim=1), carry
+
+
 def mlstm_chunk_forward(x, p, cfg, state=None, chunk: int = 256):
     """Chunkwise-parallel mLSTM over a sequence.
 
@@ -147,13 +159,23 @@ def mlstm_chunk_forward(x, p, cfg, state=None, chunk: int = 256):
     if state is None:
         state = init_mlstm_state(b, cfg, device=x.device)
     carry = (state["c"], state["n"], state["m"])
-    hs = []
-    for c in range(s // l):
-        sl = slice(c * l, (c + 1) * l)
-        carry, h_out = _mlstm_chunk(carry, q[:, sl], k[:, sl], v[:, sl],
-                                    it[:, sl], ft[:, sl])
-        hs.append(h_out)
-    hs = torch.cat(hs, dim=1)                            # (B,S,H,hd)
+    ctx = act.current()
+    if ctx is not None and act.is_dtensor(q):
+        # a mesh: the chunk loop per rank, on its batch shard and heads
+        dp, hm = act.data_entry(ctx, b), act.model_entry(ctx, h)
+        mesh = ctx["mesh"]
+        pl = {n: act.region(ctx, n, d0=dp, d2=hm) for n in (3, 4)}
+        st = [act.region(ctx, t.ndim, d0=dp, d1=hm) for t in carry]
+        loc = [act.to_local(t, mesh, pl[t.ndim])
+               for t in (q, k, v, it, ft)]
+        carry_l = tuple(act.to_local(t, mesh, p_) for t, p_ in zip(carry,
+                                                                    st))
+        hs, carry_l = _mlstm_chunks(carry_l, *loc, l)
+        hs = act.from_local(hs, mesh, pl[4])
+        carry = tuple(act.from_local(t, mesh, p_)
+                      for t, p_ in zip(carry_l, st))
+    else:
+        hs, carry = _mlstm_chunks(carry, q, k, v, it, ft, l)
     hs = hs.to(x.dtype) * og
     flat = apply_norm(hs.reshape(b, s, h * hd), p["norm"])
     y = torch.einsum("bshk,hkd->bsd", flat.reshape(b, s, h, hd),

@@ -55,8 +55,9 @@ def schedule(cfg: AdamWConfig, step):
 
 def init_state(params: Any, dtype=torch.float32) -> dict:
     """Zeroed moments like ``params`` (in ``dtype``) and step 0, on the
-    parameters' device."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=dtype, device=p.device)
+    parameters' device; a DTensor parameter's moments are DTensors with
+    its placements."""
+    zeros = lambda p: torch.zeros_like(p, dtype=dtype)
     leaves = tree_leaves_with_path(params)
     dev = leaves[0][1].device if leaves else None
     return {

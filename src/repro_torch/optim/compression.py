@@ -7,8 +7,8 @@ step.  Error feedback makes the compressed SGD/Adam trajectory converge to
 the uncompressed one (Karimireddy et al., 2019); ~3.5x fewer bytes on the
 pod-to-pod hops, which are the slowest links in a 2-pod mesh.
 
-The port has the local transform; the reduction over a mesh axis
-(``compressed_psum``) waits for the collectives of ROADMAP A12f2.
+``compressed_psum`` is the reduction over one mesh axis, called on a
+rank's local shard inside a local region (the reference's ``shard_map``).
 Rounding is ``torch.round`` (half to even, as ``jnp.round``), so the int8
 payloads and scales equal the reference's bit for bit.
 """
@@ -50,13 +50,30 @@ def dequantize_block_int8(q, scale, pad, shape):
     return flat.reshape(shape)
 
 
-def compressed_psum(x: torch.Tensor, axis_name: str):
-    """The reference's psum of an int8-quantized payload over a mesh axis
-    (inside ``shard_map``): a collective, not ported yet."""
-    raise NotImplementedError(
-        "A12f2: compressed_psum reduces over a device-mesh axis; the "
-        "collectives are not ported yet (the local transform is "
-        "compress_grads_with_feedback)")
+def compressed_psum(x: torch.Tensor, axis_name: str, *, mesh=None):
+    """psum of an int8-quantized payload over the mesh axis ``axis_name``
+    (``x`` a rank's local shard, as inside ``shard_map``; ``mesh`` defaults
+    to the activation context's).  Returns the dequantized contribution
+    summed over the axis and the local quantization error (for
+    feedback)."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import act
+
+    if mesh is None:
+        ctx = act.current()
+        if ctx is None:
+            raise ValueError("compressed_psum needs a mesh: pass mesh= or "
+                             "call it under activation_mesh")
+        mesh = ctx["mesh"]
+    q, scale, pad = quantize_block_int8(x)
+    local = dequantize_block_int8(q, scale, pad, x.shape)
+    err = x - local
+    # reduce the dequantized-but-quantization-limited payload; the wire
+    # format in a real runtime is (int8, scales) -- bytes modeled accordingly.
+    total = local.clone()
+    dist.all_reduce(total, group=mesh.axis_group(axis_name))
+    return total, err
 
 
 def init_residuals(grads: Any) -> Any:

@@ -205,17 +205,26 @@ def test_moe_forward_matches(arch):
 
 
 def test_moe_mesh_raises_naming_a12f():
+    """Expert parallelism is ported (the mesh runs are held against the
+    reference in ``test_torch_mesh.py``): a model axis that does not divide
+    the experts fails the reference's assertion before any collective, and
+    a trivial mesh runs the local path, equal to ``mesh=None``."""
     cfg, _ = _cfg("olmoe-1b-7b")
     tp = tmoe.init_moe(torch.Generator().manual_seed(0), cfg, device=CPU)
     tp = {k: (v[0] if isinstance(v, tuple) else v) for k, v in tp.items()}
 
     class Mesh:
-        shape = {"data": 1, "model": 2}
+        axis_names = ("data", "model")
+        shape = {"data": 1, "model": 3}
 
-    with pytest.raises(NotImplementedError, match="A12f"):
-        tmoe.moe_forward(torch.zeros(1, 2, cfg.d_model), tp, cfg, Mesh())
+    x = torch.randn(1, 2, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    with pytest.raises(AssertionError):
+        tmoe.moe_forward(x, tp, cfg, Mesh())
     Mesh.shape = {"data": 1, "model": 1}    # a trivial mesh runs locally
-    tmoe.moe_forward(torch.zeros(1, 2, cfg.d_model), tp, cfg, Mesh())
+    y, aux = tmoe.moe_forward(x, tp, cfg, Mesh())
+    y0, aux0 = tmoe.moe_forward(x, tp, cfg)
+    assert torch.equal(y, y0) and torch.equal(aux, aux0)
 
 
 # ---------------------------------------------------------------------------

@@ -141,11 +141,15 @@ def test_deepseek_depth_cut_param_count_constant():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_every_arch_builds_and_only_a_mesh_raises(arch):
+    """Every arch runs on a mesh (``test_torch_mesh_lm.py``) but for int8
+    frozen-weight leaves, which wait for ROADMAP A12f3."""
     from repro_torch.models.transformer import ParallelCtx
     cfg = tcfg.reduced(tcfg.get_config(arch))
     lm = LM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12f"):
-        lm.prefill({}, {"tokens": torch.zeros((1, 2), dtype=torch.long)},
+    params = {"embed": {"q": torch.zeros((2, 2), dtype=torch.int8),
+                        "scale": torch.ones(2)}}
+    with pytest.raises(NotImplementedError, match="A12f3"):
+        lm.prefill(params, {"tokens": torch.zeros((1, 2), dtype=torch.long)},
                    cache_len=4, ctx=ParallelCtx(mesh=object()))
 
 

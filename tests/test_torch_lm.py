@@ -648,8 +648,18 @@ def test_decode_matches_teacher_forcing(arch):
 def test_steps_drive_the_lm_on_one_device():
     cfg, jlm, jp, lm, tp = _pair("qwen3-32b")
     assert make_ctx(None).mesh is None
-    with pytest.raises(NotImplementedError, match="A12f"):
-        make_ctx(object())
+    from jax.sharding import AbstractMesh as JMesh
+    from repro.launch.steps import make_ctx as j_make_ctx
+    from repro_torch.launch.mesh import AbstractMesh
+    for use_tp in (True, False):
+        for sizes, names in (((2, 2), ("data", "model")),
+                             ((2, 4, 2), ("pod", "data", "model"))):
+            want = j_make_ctx(JMesh(sizes, names),
+                              cfg.replace(use_tp=use_tp))
+            got = make_ctx(AbstractMesh(sizes, names),
+                           cfg.replace(use_tp=use_tp))
+            assert (got.data_axes, got.model_axis, got.fsdp) == (
+                want.data_axes, want.model_axis, want.fsdp)
     prefill, decode = make_prefill_step(lm, None, 12), make_decode_step(lm,
                                                                         None)
     _, jb, tb = _batches(cfg, np.random.default_rng(17), 2, 8)

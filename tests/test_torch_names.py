@@ -50,12 +50,6 @@ _A12_DRYRUN = ("A12f3: lowering a cell for the dry run and the "
                "(launch/dryrun.py, launch/specs.py), not ported yet")
 _A12_SPECS = ("A12f: sharded abstract specs (jax.ShapeDtypeStruct with a "
               "NamedSharding) belong to the dry-run lowering, not ported yet")
-_A12_MESH = ("A12f: the TPU-pod production and host meshes (16 x 16 chips, "
-             "2 pods) serve the LM substrate; the reservoir server needs "
-             "only the data mesh")
-_A12_TP = ("A12f: logical-axis tensor-parallel / FSDP / KV-cache sharding "
-           "rules of the LM substrate; the reservoir server needs only the "
-           "batch axis")
 _DONATE = ("permanent departure: the helper mutes JAX's buffer-donation "
            "warning for the single-device and sharded dispatch paths; "
            "PyTorch writes the carry in place and has no warning to mute")
@@ -73,9 +67,6 @@ def _params_of(fn: str, *names) -> set:
 
 # module (relative path) -> {missing name: reason}
 EXCEPTIONS = {
-    "launch/mesh.py": dict.fromkeys(
-        ["make_host_mesh", "make_production_mesh",
-         "make_production_mesh(multi_pod=)"], _A12_MESH),
     "launch/roofline.py": dict.fromkeys(
         ["RESULTS", "cell_report", "cell_report(rec=)", "load_all",
          *_params_of("load_all", "mesh_dir", "variants"), "main",
@@ -119,18 +110,6 @@ EXCEPTIONS = {
         "FusedReservoir", "block", "interpret"), _PALLAS),
     "kernels/reservoir_step/reservoir_step.py": dict.fromkeys(_params_of(
         "reservoir_step", "block_c", "block_r", "interpret"), _PALLAS),
-    "parallel/sharding.py": dict.fromkeys(
-        ["TP_AXES", "batch_sharding", *_params_of("batch_sharding", "mesh",
-                                                  "ndim"),
-         "cache_sharding", *_params_of(
-             "cache_sharding", "batch_dim", "kv_dim", "mesh", "n_kv",
-             "seq_dim", "shape"),
-         "param_shardings", *_params_of(
-             "param_shardings", "axes_tree", "expert_fsdp", "fsdp", "mesh",
-             "shapes_tree", "use_tp"),
-         "resolve_axes", *_params_of(
-             "resolve_axes", "expert_fsdp", "fsdp", "logical", "mesh",
-             "shape", "use_tp")], _A12_TP),
     "serve/api.py": dict.fromkeys(
         ["warn_deprecated", "warn_deprecated(message=)",
          "warn_deprecated(stacklevel=)"], _SHIM),
@@ -172,7 +151,22 @@ DEPARTURES = {
             ["local_devices", "local_devices(device=)"],
             "for jax.devices(): the visible CUDA devices (raises without "
             "one) or [cpu]"),
+        **dict.fromkeys(
+            ["LMMesh", "LMMesh.device_mesh", "make_mesh", "AbstractMesh",
+             "make_host_mesh(device=)", "make_production_mesh(device=)"],
+            "for jax.make_mesh / jax.sharding.Mesh / AbstractMesh: a named "
+            "torch DeviceMesh over the process group (one rank per "
+            "device), and names and sizes without one"),
     },
+    "parallel/sharding.py": dict.fromkeys(
+        ["NamedSharding", "placements", "distribute_tree"],
+        "for jax.sharding.NamedSharding and jax.device_put: a spec's "
+        "DTensor placements, and a tree of full tensors cut into each "
+        "rank's shards"),
+    "parallel/act.py": dict.fromkeys(
+        ["to_local", "from_local"],
+        "for shard_map's in_specs / out_specs: the two ends of a local "
+        "region, with the gradient's placements declared"),
     "dist/scheduler.py": {
         "DistributedReservoirServer(devices=)":
             "for len(jax.devices()): the ordered device pool the mesh "

@@ -334,7 +334,10 @@ def test_compress_grads_with_feedback_matches_reference():
 
 
 def test_compressed_psum_waits_for_a12f2():
-    with pytest.raises(NotImplementedError, match="A12f2"):
+    """The reduction over a mesh axis is ported (held against the
+    reference's ``shard_map`` in ``test_torch_mesh.py``); without a mesh
+    it names what it needs."""
+    with pytest.raises(ValueError, match="mesh"):
         tcomp.compressed_psum(torch.ones(4), "data")
 
 
@@ -519,10 +522,14 @@ def test_loss_streams_the_vocab_above_2_to_the_24(monkeypatch):
 
 
 def test_loss_waits_for_a_mesh():
+    """The loss runs on a mesh (``test_torch_mesh_train.py``) but for int8
+    leaves, which wait for ROADMAP A12f3."""
     cfg = tcfg.reduced(tcfg.get_config("stablelm-1.6b"))
     lm = LM(cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="A12f"):
-        lm.loss({}, {"tokens": torch.zeros(1, 3, dtype=torch.long)},
+    params = {"embed": {"q": torch.zeros((2, 2), dtype=torch.int8),
+                        "scale": torch.ones(2)}}
+    with pytest.raises(NotImplementedError, match="A12f3"):
+        lm.loss(params, {"tokens": torch.zeros(1, 3, dtype=torch.long)},
                 ParallelCtx(mesh=object()))
 
 
@@ -630,11 +637,25 @@ def test_tiny_preset_loss_falls_over_40_steps():
 
 
 def test_train_step_waits_for_a_mesh():
-    lm = LM(tcfg.reduced(tcfg.get_config("stablelm-1.6b")), device=CPU)
-    with pytest.raises(NotImplementedError, match="A12f"):
-        make_train_step(lm, object())
-    with pytest.raises(NotImplementedError, match="A12f"):
-        make_train_step(lm, None, grad_shardings={})
+    """A mesh and ``grad_shardings`` build a step (their runs are held in
+    ``test_torch_mesh_train.py``); without a mesh ``grad_shardings`` has
+    nothing to place and the step equals the plain one bit for bit."""
+    from repro_torch.launch.mesh import AbstractMesh
+    cfg = tcfg.reduced(tcfg.get_config("stablelm-1.6b")).replace(
+        dtype="float32")
+    lm = LM(cfg, device=CPU)
+    assert callable(make_train_step(lm, AbstractMesh((2, 2),
+                                                     ("data", "model"))))
+    outs = []
+    for grad_sh in (None, {}):
+        params = lm.init(torch.Generator().manual_seed(0)).params
+        state = {"params": params, "opt": adamw.init_state(params)}
+        _, tb = _batches(cfg, 4, 8)
+        _, m = make_train_step(lm, None, adamw.AdamWConfig(**_STEP_CFG),
+                               grad_shardings=grad_sh)(state, tb)
+        outs.append((m["loss"], flat(state)))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert all(torch.equal(outs[0][1][k], outs[1][1][k]) for k in outs[0][1])
 
 
 def test_train_state_from_numpy_keeps_dtypes():
