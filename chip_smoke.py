@@ -146,6 +146,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    in a 2 x 2 DTensor mesh over them, so the multi-rank path is held by
    the CPU tests alone.  No kernel of B1-B5 may launch
    (``launches_lm_mesh``);
+14. ``dryrun`` (after ``mesh``): the dry run (``launch/dryrun.py``,
+   ``lower_cell``: a step run once on rank 0 of a fake process group on
+   meta tensors) held against the card: (a) stablelm-1.6b's train step at
+   the train phase's shape (8 x 2048, 2 microbatches) dry-run on a fake
+   world of one rank, then one real step on the card under
+   ``FlopCounterMode``: the dry run's per-device dot FLOPs equal the
+   counted ones, and its predicted peak is within DRYRUN_PEAK_RATIO of
+   ``max_memory_allocated`` (both printed, with the ratio); (b)
+   mistral-nemo-12b's int8 tree (``quantize_tree`` of the seeded bf16
+   parameters) prefilled at 4 x 512 and decoded 8 greedy steps on the
+   ``(1, 1)`` NCCL mesh (int8 leaves placed as ``lower_cell`` places
+   them) against ``mesh=None``: tokens and last logits bit for bit, ms per
+   decode step of both; (c) three full-width cells on the 16 x 16 fake
+   mesh (stablelm-1.6b train_4k, mistral-nemo-12b decode_32k,
+   olmoe-1b-7b prefill_32k), each through ``python -m
+   repro_torch.launch.dryrun --cell`` in a subprocess of its own, started
+   before (a) and run on the host's cores beside it: each ends ``ok``,
+   its ``param_count`` equals the meta LM's and its argument bytes the
+   shard bytes the sharding rules give rank 0; peak GB per device and
+   whether it fits 80 GB, dot FLOPs per device, the useful ratio, the
+   collective bytes by kind (beside ``tools/mesh_bytes.py``'s) and the
+   seconds per cell.  No kernel of B1-B5 may launch
+   (``launches_lm_dryrun``);
 5. times each kernel per launch at the LARGE_1024 shape with CUDA events
    and the profiler, beside its plain twin, one PyTorch call computing the
    same product (and cuSPARSE for B4), and the least time the card could
@@ -165,6 +188,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -275,6 +299,27 @@ MESH_ARCH = "olmoe-1b-7b"
 MESH_PROMPT = (4, 512)
 MESH_DECODE_STEPS = 8
 
+# the dryrun phase: (a) the dry run of the train phase's step (TRAIN_ARCH
+# at TRAIN_BATCH x TRAIN_SEQ, its microbatches) on a fake world of one rank
+# against one real step on the card: the dot FLOPs equal, the predicted
+# peak within DRYRUN_PEAK_RATIO of max_memory_allocated; (b) int8 serving
+# of LM_ARCH on the (1, 1) NCCL mesh against mesh=None, DRYRUN_PROMPT and
+# DRYRUN_DECODE_STEPS greedy steps; (c) DRYRUN_CELLS at full width on the
+# 16 x 16 production mesh, each through the dry-run CLI in a subprocess
+# of its own (all three at once), within DRYRUN_CELL_TIMEOUT seconds.
+# MESH_BYTES are tools/mesh_bytes.py's computed bytes per rank of the
+# explicit redistributes of those cells (PERF.md), printed beside the dry
+# run's collective bytes.
+DRYRUN_PEAK_RATIO = (0.5, 2.0)
+DRYRUN_PROMPT = (4, 512)
+DRYRUN_DECODE_STEPS = 8
+DRYRUN_CELLS = (("stablelm-1.6b", "train_4k"),
+                ("mistral-nemo-12b", "decode_32k"),
+                ("olmoe-1b-7b", "prefill_32k"))
+DRYRUN_CELL_TIMEOUT = 600
+MESH_BYTES = {("stablelm-1.6b", "train_4k"): 262_144,
+              ("mistral-nemo-12b", "decode_32k"): 5_324_800}
+
 # Published H100 SXM peaks (NVIDIA data sheet) used for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -354,6 +399,7 @@ class Smoke:
         self.blocks_launches: dict = {}
         self.train_launches: dict = {}
         self.mesh_launches: dict = {}
+        self.dryrun_launches: dict = {}
 
     def check(self, cond: bool, what: str) -> None:
         if not cond:
@@ -2090,6 +2136,281 @@ class Smoke:
         del params, runs
         torch.cuda.empty_cache()
 
+    # -- dryrun ------------------------------------------------------------
+    def dryrun(self):
+        """The dry run held against the card: (a) the train phase's step,
+        (b) int8 serving on the (1, 1) mesh, (c) three production cells
+        through the CLI (started first: they run on the host's cores while
+        (a) and (b) use the card).  Counts every kernel's launches over
+        the phase (must be 0)."""
+        counters = self._kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        self._readout.fused_launches = 0
+        print(f"dryrun on {self.card}")
+        procs = self._dryrun_start_cells()
+        try:
+            self._dryrun_train()
+            self._dryrun_int8()
+        finally:
+            self._dryrun_cells(procs)
+        made = {k: fn.launches for k, fn in counters.items()}
+        made["rollout_readout"] += self._readout.fused_launches
+        self.dryrun_launches = made
+        print(f"launches of B1-B5 and the readout: {made}")
+        self.check(not any(made.values()), "the dryrun phase launched a "
+                   "reservoir kernel")
+
+    def _dryrun_start_cells(self):
+        out = ROOT / "build" / "dryrun_cells"
+        out.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for arch, shape in DRYRUN_CELLS:
+            log = open(out / f"{arch}__{shape}.log", "w")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--cell", arch, shape, "--force", "--no-hlo"]
+            env = dict(os.environ,
+                       PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+            procs[(arch, shape)] = (subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT, env=env,
+                cwd=str(ROOT)), log, time.perf_counter())
+        return procs
+
+    def _dryrun_train(self):
+        """(a) lower_cell at TRAIN_ARCH's full width on a fake world of one
+        rank, then one real step on the card under FlopCounterMode."""
+        torch = self.torch
+        from torch.utils.flop_counter import FlopCounterMode
+        from repro_torch.configs import ShapeSpec, get_config
+        from repro_torch.data.pipeline import LMStreamConfig, lm_batch
+        from repro_torch.launch.mesh import fake_world, make_mesh
+        from repro_torch.launch.steps import lower_cell, make_train_step
+        from repro_torch.models.transformer import LM
+        from repro_torch.optim import adamw
+        cfg = get_config(TRAIN_ARCH)
+        shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+        t0 = time.perf_counter()
+        with fake_world(1):
+            lowered, meta = lower_cell(cfg, shape, make_mesh(
+                (1, 1), ("data", "model")))
+            compiled = lowered.compile()
+        dry_s = time.perf_counter() - t0
+        walk, mem = compiled.walk(), compiled.memory_analysis()
+        print(f"(a) {TRAIN_ARCH} {meta['step']} at {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ}, {cfg.microbatches} microbatches, dry run on a "
+              f"fake world of 1 rank: {dry_s:.1f} s on the host; dot FLOPs "
+              f"{walk['dot_flops']!r}, memory {mem}")
+        lm = LM(cfg, device=self.dev)
+        torch.cuda.empty_cache()
+        params = lm.init(torch.Generator(device=self.dev).manual_seed(0)
+                         ).params
+        state = {"params": params, "opt": adamw.init_state(params)}
+        stream = LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH, seed=0,
+                                structure=0.8)
+        batch = {"tokens": torch.as_tensor(lm_batch(stream, 0)["tokens"],
+                                           dtype=torch.long,
+                                           device=self.dev)}
+        step_fn = make_train_step(lm, None, adamw.AdamWConfig(**TRAIN_OPT))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as fc:
+            state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        real_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counted = fc.get_total_flops()
+        ratio = mem["peak_bytes"] / peak
+        print(f"    one real step on the card: {real_s:.2f} s (under "
+              f"FlopCounterMode), loss {float(metrics['loss'])!r}; "
+              f"FlopCounterMode {counted!r} FLOPs, dry run dot FLOPs "
+              f"{walk['dot_flops']!r} (equal: "
+              f"{walk['dot_flops'] == counted})")
+        print(f"    peak bytes: dry run {mem['peak_bytes']:,} "
+              f"({mem['peak_bytes'] / 1e9:.2f} GB), max_memory_allocated "
+              f"{peak:,} ({peak / 1e9:.2f} GB), ratio {ratio!r} on "
+              f"{self.card}")
+        self.check(walk["dot_flops"] == counted > 0, "the dry run's dot "
+                   f"FLOPs {walk['dot_flops']} != FlopCounterMode's "
+                   f"{counted}")
+        lo, hi = DRYRUN_PEAK_RATIO
+        self.check(lo <= ratio <= hi, f"dry-run peak / max_memory_allocated "
+                   f"{ratio} outside {DRYRUN_PEAK_RATIO}")
+        self.check(bool(torch.isfinite(metrics["loss"])), "the real step's "
+                   "loss is not finite")
+        del state, params, metrics, step_fn, batch
+        torch.cuda.empty_cache()
+
+    def _dryrun_int8(self):
+        """(b) LM_ARCH's int8 tree (``quantize_tree`` of the seeded bf16
+        parameters) prefilled and decoded without a mesh, then on the
+        (1, 1) NCCL mesh, placed as ``lower_cell`` places int8 leaves."""
+        torch = self.torch
+        import torch.distributed as dist
+        from repro_torch.configs import get_config
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.steps import (make_decode_step,
+                                              make_prefill_step)
+        from repro_torch.models.quantize import (is_quantized_leaf,
+                                                 quantize_tree)
+        from repro_torch.models.transformer import LM, lm_param_shardings
+        from repro_torch.parallel.sharding import distribute_tree
+        cfg = get_config(LM_ARCH)
+        lm = LM(cfg, device=self.dev)
+        n = lm.param_count()
+        self.check(n == LM_PARAMS, f"{LM_ARCH} param_count {n:,} != the "
+                   f"reference's {LM_PARAMS:,}")
+        torch.cuda.empty_cache()
+        params = lm.init(torch.Generator(device=self.dev).manual_seed(0)
+                         ).params
+        q = quantize_tree(params)
+        del params
+        torch.cuda.empty_cache()
+        stack = [q]
+        n_q = 0
+        while stack:
+            t = stack.pop()
+            if is_quantized_leaf(t):
+                n_q += 1
+            elif isinstance(t, dict):
+                stack.extend(t.values())
+        b, s = DRYRUN_PROMPT
+        prompt = torch.as_tensor(np.random.default_rng(11).integers(
+            0, cfg.vocab_size, (b, s)), device=self.dev)
+        store = ROOT / "build" / "dryrun_store"
+        store.parent.mkdir(exist_ok=True)
+        store.unlink(missing_ok=True)
+        dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                                rank=0, world_size=1)
+        runs = {}
+        try:
+            mesh = make_host_mesh()
+            for name, m in (("none", None), ("mesh", mesh)):
+                p = (q if m is None else
+                     distribute_tree(q, lm_param_shardings(
+                         cfg, m, fsdp=cfg.fsdp and cfg.serving_fsdp)))
+                prefill = make_prefill_step(lm, m, s + DRYRUN_DECODE_STEPS)
+                decode = make_decode_step(lm, m)
+                ev = self._events(2 * (DRYRUN_DECODE_STEPS + 1))
+                ev[0].record()
+                logits, caches = prefill(p, {"tokens": prompt})
+                ev[1].record()
+                toks = []
+                for i in range(DRYRUN_DECODE_STEPS):
+                    tok = self._local(logits).argmax(-1)
+                    toks.append(tok)
+                    ev[2 * i + 2].record()
+                    logits, caches = decode(p, caches, tok)
+                    ev[2 * i + 3].record()
+                torch.cuda.synchronize()
+                ms = [ev[2 * i].elapsed_time(ev[2 * i + 1])
+                      for i in range(DRYRUN_DECODE_STEPS + 1)]
+                runs[name] = (torch.cat(toks, 1), self._local(logits), ms)
+                print(f"(b) {LM_ARCH} int8 ({n_q} int8 leaves) "
+                      f"{'on the (1, 1) mesh' if m else 'mesh=None'}: "
+                      f"prefill {b} x {s} {ms[0]:.2f} ms, decode ms per "
+                      f"step {[round(x, 2) for x in ms[1:]]}")
+                del caches, logits, p
+        finally:
+            dist.destroy_process_group()
+            store.unlink(missing_ok=True)
+        (t0, l0, ms0), (t1, l1, ms1) = runs["none"], runs["mesh"]
+        tok_eq, log_eq = bool(torch.equal(t0, t1)), bool(torch.equal(l0, l1))
+        med = {k: float(np.median(v[2][2:])) for k, v in runs.items()}
+        print(f"    {DRYRUN_DECODE_STEPS} greedy tokens equal: {tok_eq}; "
+              f"last logits bit for bit: {log_eq}; decode ms per step "
+              f"(median of steps 2-{DRYRUN_DECODE_STEPS}): mesh=None "
+              f"{med['none']:.2f}, the mesh {med['mesh']:.2f} on "
+              f"{self.card}")
+        self.check(n_q > 0 and tok_eq and log_eq, "int8 on the (1, 1) mesh "
+                   "differs from mesh=None")
+        del q, runs, l0, l1
+        torch.cuda.empty_cache()
+
+    def _dryrun_cells(self, procs):
+        """(c) Wait for the CLI's cells and hold each record."""
+        import math
+        from repro_torch.configs import SHAPES, get_config
+        from repro_torch.launch import roofline as rf
+        from repro_torch.launch import specs
+        from repro_torch.launch.dryrun import cell_path
+        from repro_torch.launch.report import HBM_GB
+        from repro_torch.launch.mesh import AbstractMesh
+        from repro_torch.models.common import tree_leaves
+        from repro_torch.models.transformer import LM
+        mesh = AbstractMesh((16, 16), ("data", "model"))
+
+        def shard_bytes(tree):
+            total = 0
+            for sds in tree_leaves(tree):
+                local = list(sds.shape)
+                for d, entry in enumerate(sds.sharding.spec):
+                    for a in ((entry,) if isinstance(entry, str)
+                              else entry or ()):
+                        local[d] //= mesh.shape[a]
+                total += math.prod(local) * sds.dtype.itemsize
+            return total
+
+        for (arch, shape), (proc, log, t0) in procs.items():
+            try:
+                rc = proc.wait(timeout=max(
+                    DRYRUN_CELL_TIMEOUT - (time.perf_counter() - t0), 1))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+            log.close()
+            secs = time.perf_counter() - t0
+            p = cell_path(arch, shape, False)
+            rec = json.loads(p.read_text()) if p.exists() else {}
+            ok = rc == 0 and rec.get("status") == "ok"
+            self.check(ok, f"dry-run cell {arch} {shape}: exit {rc}, status "
+                       f"{rec.get('status')} {rec.get('error', '')}")
+            if not ok:
+                print(f"(c) {arch} {shape}: FAILED, log tail:\n"
+                      + pathlib.Path(log.name).read_text()[-3000:])
+                continue
+            cfg = get_config(arch)
+            lm = LM(cfg, device="meta")
+            n = lm.param_count()
+            sh = SHAPES[shape]
+            fsdp = cfg.fsdp and (cfg.serving_fsdp if sh.kind != "train"
+                                 else True)
+            structs, _ = specs.params_specs(lm, mesh, fsdp=fsdp)
+            if sh.kind == "train":
+                expect = (shard_bytes(structs) + shard_bytes(
+                    specs.opt_state_specs(structs, mesh, cfg.opt_dtype))
+                    + shard_bytes(specs.batch_specs(cfg, sh, mesh)))
+            elif sh.kind == "prefill":
+                expect = (shard_bytes(structs)
+                          + shard_bytes(specs.batch_specs(cfg, sh, mesh)))
+            else:
+                expect = (shard_bytes(structs)
+                          + shard_bytes(specs.cache_specs(lm, sh, mesh))
+                          + shard_bytes({"t": specs.token_spec(sh, mesh)}))
+            mem, walk = rec["memory_per_device"], rec["hlo_walk"]
+            rep = rf.cell_report(rec)
+            peak_gb = mem["peak_bytes"] / 1e9
+            print(f"(c) {arch} {shape} on 16 x 16 ({rec['step']}): "
+                  f"{secs:.1f} s (lower {rec['t_lower_s']} s, run "
+                  f"{rec['t_compile_s']} s); param_count "
+                  f"{rec['param_count']:,} (meta LM {n:,}); argument bytes "
+                  f"{mem['argument_bytes']:,} (rules {expect:,}); peak "
+                  f"{peak_gb:.2f} GB per device, fits {HBM_GB} GB: "
+                  f"{peak_gb <= HBM_GB}; dot FLOPs per device "
+                  f"{walk['dot_flops']!r}, useful ratio 6ND / (dot x 256) "
+                  f"{rep['useful_ratio']!r}; collective bytes per rank "
+                  f"{walk['collective_bytes']} (total "
+                  f"{walk['total_collective_bytes']!r}; tools/mesh_bytes.py's "
+                  f"explicit redistributes "
+                  f"{MESH_BYTES.get((arch, shape), 'n/a')}); dominant "
+                  f"{rep['dominant']}")
+            self.check(rec["param_count"] == n, f"{arch} dry-run "
+                       f"param_count {rec['param_count']} != {n}")
+            self.check(mem["argument_bytes"] == expect, f"{arch} {shape} "
+                       f"argument bytes {mem['argument_bytes']} != the "
+                       f"rules' {expect}")
+
     def _train_breakdown(self, lm, state, batch):
         """Where a step's time goes (CUDA events, ms, each after a warm-up
         call): one microbatch's forward alone and with its backward, the
@@ -3097,6 +3418,7 @@ class Smoke:
                 launches_lm_blocks=self.blocks_launches.get(name, 0),
                 launches_lm_train=self.train_launches.get(name, 0),
                 launches_lm_mesh=self.mesh_launches.get(name, 0),
+                launches_lm_dryrun=self.dryrun_launches.get(name, 0),
                 max_abs_err=max(v for v in e.values() if v is not None),
                 **{f"max_abs_err_{m}": v for m, v in e.items()},
                 **self.kernels[name]))
@@ -3133,7 +3455,7 @@ def main() -> int:
                   smoke.baseline_twins, smoke.fixed_matrix, smoke.times,
                   smoke.fixed_times, smoke.autotune, smoke.sharded,
                   smoke.serve_layer, smoke.lm_serve, smoke.lm_blocks,
-                  smoke.train, smoke.mesh):
+                  smoke.train, smoke.mesh, smoke.dryrun):
         t0 = time.perf_counter()
         print(f"== {phase.__name__}")
         try:

@@ -1,2 +1,3 @@
-"""Launch layer: the data mesh of sharded serving, the LM prefill/decode
-step builders, and the roofline (the LM analytic model and the rollout)."""
+"""Launch layer: meshes, the step builders, the dry run (specs, a step's
+per-device tally, the per-cell driver) and its reports, and the roofline
+(the LM analytic model and the rollout)."""

@@ -10,9 +10,13 @@ device of a host from one process).  It exposes ``axis_names`` and a
 ``device_mesh`` carries the DTensors.  The caller sets up the process
 group first (``torch.distributed.init_process_group`` with its store,
 world size and rank); a CUDA mesh needs the NCCL backend and one card per
-process, a CPU mesh gloo.  :class:`AbstractMesh` has names and sizes only
-(no process group): the rules run on it for a mesh that does not exist on
-this host, such as the 256-chip production mesh.
+process, a CPU mesh gloo.  The dry run's mesh runs over a fake process
+group (:func:`fake_world`: any world size, this process its rank 0, no
+device behind the other ranks): its collectives return at once and move
+nothing, and its mesh is CPU-typed whatever device is asked for, because
+the dry run's tensors are fake (shapes only).  :class:`AbstractMesh` has
+names and sizes only (no process group): the rules run on it for a mesh
+that does not exist on this host, such as the 256-chip production mesh.
 
 The reservoir is frozen and replicated (the paper's premise), so a serving
 mesh carries no model axis — just ``n_shards`` data shards, shard ``k`` on
@@ -25,6 +29,7 @@ run one after another on it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -32,8 +37,8 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["AbstractMesh", "DataMesh", "LMMesh", "local_devices",
-           "make_data_mesh", "make_host_mesh", "make_mesh",
+__all__ = ["AbstractMesh", "DataMesh", "LMMesh", "fake_world",
+           "local_devices", "make_data_mesh", "make_host_mesh", "make_mesh",
            "make_production_mesh"]
 
 
@@ -97,11 +102,12 @@ def make_mesh(shape: tuple, axis_names: tuple, device=None) -> LMMesh:
     whose world size must equal the mesh's size.  ``device`` picks the
     device type (``None`` = ``cuda``, raising without one): a CUDA mesh
     needs the NCCL backend and sets each rank's card to its local rank
-    (the rank modulo the visible cards), a CPU mesh runs on gloo."""
+    (the rank modulo the visible cards), a CPU mesh runs on gloo.  Over a
+    fake process group (:func:`fake_world`) the mesh is CPU-typed and
+    ``device`` is not read."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
-    dev = resolve_device(device)
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError(
             "a device mesh runs over a process group: call "
@@ -112,6 +118,10 @@ def make_mesh(shape: tuple, axis_names: tuple, device=None) -> LMMesh:
         raise ValueError(f"a {tuple(shape)} mesh needs {size} ranks, the "
                          f"process group has {dist.get_world_size()}")
     backend = dist.get_backend()
+    if backend == "fake":
+        return LMMesh(init_device_mesh("cpu", tuple(shape),
+                                       mesh_dim_names=tuple(axis_names)))
+    dev = resolve_device(device)
     if dev.type == "cuda":
         if backend != "nccl":
             raise RuntimeError(f"a CUDA mesh runs on NCCL, the process "
@@ -124,10 +134,30 @@ def make_mesh(shape: tuple, axis_names: tuple, device=None) -> LMMesh:
                                    mesh_dim_names=tuple(axis_names)))
 
 
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """A fake process group of ``world_size`` ranks for the dry run, this
+    process its rank 0 (no other rank exists: collectives return at once
+    with outputs of the right shape and move nothing), destroyed on exit.
+    A process holds one group at a time: the dry run runs each cell of
+    another mesh size in a process of its own."""
+    import torch.distributed as dist
+    # importing the module registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> LMMesh:
     """The assignment's target: 16x16 = 256 chips/pod; 2 pods multi-pod.
-    Raises unless the process group holds 256 (512) ranks; the rules on
-    this mesh without the ranks take ``AbstractMesh``."""
+    Raises unless the process group holds 256 (512) ranks (the dry run's
+    :func:`fake_world` does); the rules on this mesh without the ranks
+    take ``AbstractMesh``."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, device)

@@ -8,8 +8,16 @@ cores, 3.35 TB/s HBM, NVLink 4 at 450 GB/s per direction (18 links).
 The LM half (``model_flops``, ``kv_cache_bytes``, ``analytic_hbm_bytes``,
 ``active_params``) is the JAX package's analytic model, unchanged: 2*N*D
 FLOPs for inference (6*N*D for training) and a documented napkin model of
-the HBM traffic per step.  The half of the JAX package's module that reads
-dry-run results (``cell_report`` and its tables) waits for ROADMAP A12f.
+the HBM traffic per step.  ``cell_report`` assembles three terms per dry-run
+cell (``launch/dryrun.py``'s records, either package's) at these peaks:
+
+  compute    = dot_FLOPs_per_device / PEAK_FLOPS
+  memory     = HBM_traffic_per_device / HBM_BW (the analytic model)
+  collective = collective_bytes_per_device / LINK_BW
+
+with MODEL_FLOPS = 6*N_active*D (train) or 2*N_active*D (inference), the
+useful-compute ratio MODEL_FLOPS / (dot FLOPs * devices), the dominant term
+and a one-line "what would move it" note; ``to_markdown`` tables them.
 
 Two terms per rollout schedule:
 
@@ -28,13 +36,18 @@ budget, so the budget moves no byte.
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
+
+from repro_torch.configs import SHAPES, get_config
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.core.costmodel import rollout_cost_features
 
 __all__ = ["DIGIT_BYTES", "HBM_BW", "LINK_BW", "PEAK_FLOPS",
-           "PEAK_FP32_FLOPS", "PEAK_INT8_OPS", "SHIFTADD_OPS",
-           "active_params", "analytic_hbm_bytes", "expert_params_per_layer",
-           "kv_cache_bytes", "model_flops", "rollout_roofline"]
+           "PEAK_FP32_FLOPS", "PEAK_INT8_OPS", "RESULTS", "SHIFTADD_OPS",
+           "active_params", "analytic_hbm_bytes", "cell_report",
+           "expert_params_per_layer", "kv_cache_bytes", "load_all", "main",
+           "model_flops", "rollout_roofline", "to_markdown"]
 
 PEAK_FLOPS = 989e12       # bf16 tensor-core FLOP/s
 PEAK_INT8_OPS = 1979e12   # int8 tensor-core ops/s
@@ -46,6 +59,8 @@ LINK_BW = 450e9           # B/s, NVLink 4 per direction
 # over 132 SMs at the 1.98 GHz boost clock (data sheet)
 SHIFTADD_OPS = 32 * 132 * 1.98e9
 DIGIT_BYTES = 4           # one packed uint32 per digit in a block's share
+
+RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 
 
 # ---------------------------------------------------------------------------
@@ -163,3 +178,93 @@ def rollout_roofline(summary: dict, block: int, batch: int,
                   "crossover (trade tensor-core tiles against atomic adds)")
     return {"compute_s": t_c, "memory_s": t_m, "dominant": dom,
             "bound_s": max(terms.values()), "advice": advice}
+
+
+# ---------------------------------------------------------------------------
+# assembly: the dry run's cells
+# ---------------------------------------------------------------------------
+def _advice(dom: str, cfg: ModelConfig, shape: ShapeSpec) -> str:
+    if dom == "collective":
+        if cfg.moe is not None:
+            return ("replicated-dispatch EP psums full activations every MoE "
+                    "layer; switch combine to reduce-scatter + seq-sharding")
+        return "shard more weights FSDP to turn all-reduces into reduce-scatters"
+    if dom == "memory":
+        if shape.kind == "decode":
+            return ("weights re-read every token: int8/CSD frozen-weight "
+                    "serving (paper technique) halves the stream")
+        return "raise arithmetic intensity: bigger per-device batch or less remat"
+    return "compute-bound: good; next win is overlap of FSDP gathers with matmuls"
+
+
+def cell_report(rec: dict) -> dict | None:
+    if rec.get("status") != "ok":
+        return None
+    cfg = get_config(rec["arch"])
+    shape = SHAPES[rec["shape"]]
+    n_dev = rec["n_devices"]
+    n_total = rec["param_count"]
+    n_act = active_params(cfg, n_total)
+
+    flops_dev = rec["hlo_walk"]["dot_flops"] + rec["hlo_walk"]["conv_flops"]
+    coll_dev = rec["hlo_walk"]["total_collective_bytes"]
+    hbm_dev = analytic_hbm_bytes(cfg, shape, n_total, n_act, n_dev)
+
+    t_c = flops_dev / PEAK_FLOPS
+    t_m = hbm_dev / HBM_BW
+    t_n = coll_dev / LINK_BW
+    terms = {"compute": t_c, "memory": t_m, "collective": t_n}
+    dom = max(terms, key=terms.get)
+    mf = model_flops(cfg, shape, n_act)
+    hlo_global = flops_dev * n_dev
+    return {
+        "arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
+        "compute_s": t_c, "memory_s": t_m, "collective_s": t_n,
+        "dominant": dom,
+        "model_flops": mf,
+        "useful_ratio": mf / hlo_global if hlo_global else float("nan"),
+        "step_s_bound": max(terms.values()),
+        "roofline_frac": (terms["compute"] / max(terms.values())
+                          if max(terms.values()) > 0 else 0.0),
+        "peak_mem_gb": rec["memory_per_device"]["peak_bytes"] / 2**30,
+        "advice": _advice(dom, cfg, shape),
+    }
+
+
+def load_all(mesh_dir: str = "pod16x16", variants: bool = False) -> list:
+    out = []
+    for p in sorted((RESULTS / mesh_dir).glob("*.json")):
+        rec = json.loads(p.read_text())
+        if bool(rec.get("variant")) != variants:
+            continue
+        out.append(rec)
+    return out
+
+
+def to_markdown(reports: list) -> str:
+    hdr = ("| arch | shape | compute s | memory s | collective s | dominant "
+           "| 6ND/HLO | roofline frac | mem GB/dev | next lever |\n"
+           "|---|---|---|---|---|---|---|---|---|---|\n")
+    rows = []
+    for r in reports:
+        rows.append(
+            f"| {r['arch']} | {r['shape']} | {r['compute_s']:.2e} "
+            f"| {r['memory_s']:.2e} | {r['collective_s']:.2e} "
+            f"| **{r['dominant']}** | {r['useful_ratio']:.2f} "
+            f"| {r['roofline_frac']:.2f} | {r['peak_mem_gb']:.1f} "
+            f"| {r['advice']} |")
+    return hdr + "\n".join(rows)
+
+
+def main():
+    recs = load_all()
+    reports = [r for r in (cell_report(x) for x in recs) if r]
+    print(to_markdown(reports))
+    out = RESULTS / "roofline.md"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(to_markdown(reports) + "\n")
+    print(f"\nwrote {out}")
+
+
+if __name__ == "__main__":
+    main()

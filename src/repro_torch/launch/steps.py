@@ -9,8 +9,17 @@ optimizer state are DTensors placed by ``parallel/sharding.py`` (e.g.
 through ``lm_params_from_numpy(mesh=)``), a plain batch is split over the
 data axes on the way in (each rank keeps its own rows of the global batch
 every rank holds), and the outputs are DTensors (``.full_tensor()`` reads
-one whole).  ``lower_cell`` (lowering a cell for the dry run) waits for
-ROADMAP A12f3.
+one whole).
+
+``lower_cell`` builds one (arch x shape x mesh) cell of the dry run, the
+reference's ``jax.jit(...).lower(...)`` on ``ShapeDtypeStruct`` inputs:
+the same branches (FSDP at serving time, int8 structs, ZeRO gradient
+shardings, the optimizer dtype, train / prefill / decode).  Its
+:class:`Lowered` runs the step once on rank 0 of the mesh (a
+``fake_world`` of the mesh's size) on ``meta`` tensors (shapes, no data),
+where the reference compiles (``.compile()``); the :class:`Compiled` it
+returns holds the step's per-device memory and cost
+(``launch/hlo_cost.StepTally``).
 """
 
 from __future__ import annotations
@@ -27,8 +36,8 @@ from repro_torch.parallel.act import (activation_mesh, current, data_entry,
                                       is_dtensor, region)
 from repro_torch.parallel.sharding import data_axis_names
 
-__all__ = ["make_ctx", "make_train_step", "make_prefill_step",
-           "make_decode_step"]
+__all__ = ["Compiled", "Lowered", "lower_cell", "make_ctx",
+           "make_train_step", "make_prefill_step", "make_decode_step"]
 
 
 def make_ctx(mesh, cfg=None) -> ParallelCtx:
@@ -222,3 +231,149 @@ def make_decode_step(lm: LM, mesh):
         return lm.decode_step(params, caches, token, ctx=ctx)
 
     return _with_act_ctx(decode_step, mesh, ctx)
+
+
+# ---------------------------------------------------------------------------
+# the dry run: one cell on meta tensors
+# ---------------------------------------------------------------------------
+def _materialize(tree):
+    """ShapeDtypeStruct leaves -> empty ``meta`` tensors (shapes and
+    dtypes, no data): a leaf with a sharding of rank >= 1 as a DTensor
+    holding rank 0's shard, a 0-dim leaf as a plain tensor (the port keeps
+    the optimizer's step and the decode position plain, the same on every
+    rank)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel.sharding import ShapeDtypeStruct
+
+    def one(sds):
+        if not isinstance(sds, ShapeDtypeStruct):
+            return sds
+        if sds.sharding is None or not sds.shape:
+            return torch.zeros(sds.shape, dtype=sds.dtype, device="meta")
+        mesh = sds.sharding.mesh
+        pl = sds.sharding.placements
+        local = list(sds.shape)
+        for i, p in enumerate(pl):
+            if hasattr(p, "dim"):
+                local[p.dim] //= mesh.device_mesh.size(i)
+        t = torch.empty(local, dtype=sds.dtype, device="meta")
+        return DTensor.from_local(t, mesh.device_mesh, pl, run_check=False)
+
+    return tree_map(one, tree)
+
+
+class Compiled:
+    """What one run of a cell's step measured on rank 0 (the reference's
+    compiled executable's analyses)."""
+
+    def __init__(self, tally):
+        self._tally = tally
+
+    def memory_analysis(self) -> dict:
+        """``argument_bytes``, ``output_bytes``, ``temp_bytes``,
+        ``alias_bytes``, ``peak_bytes`` per device (``StepTally.memory``)."""
+        return self._tally.memory()
+
+    def cost_analysis(self) -> dict:
+        """``flops``: the step's DTensor products counted at their global
+        shapes (every rank's work; a local region's plain products are not
+        in it), the counterpart of XLA's flat count."""
+        return {"flops": float(self._tally.global_flops)}
+
+    def walk(self) -> dict:
+        """The HLO walker's keys, per device (``StepTally.walk``)."""
+        return self._tally.walk()
+
+    def op_table(self) -> str:
+        """Per-device FLOPs and collective bytes by kind, one per line
+        (the artefact the dry run saves where the reference saves HLO)."""
+        w = self.walk()
+        lines = [f"dot_flops {w['dot_flops']!r}",
+                 f"conv_flops {w['conv_flops']!r}",
+                 f"global_flops {self._tally.global_flops!r}",
+                 f"local_ops {self._tally.n_ops}"]
+        lines += [f"collective {k} {v!r}"
+                  for k, v in sorted(w["collective_bytes"].items())]
+        lines += [f"memory {k} {v}" for k, v in self.memory_analysis().items()]
+        return "\n".join(lines) + "\n"
+
+
+class Lowered:
+    """A cell's step and its abstract inputs, ready to run on meta tensors:
+    ``compile()`` materializes the inputs (rank 0's shards), runs the step
+    once under a ``StepTally`` and returns the :class:`Compiled`.  The
+    step writes argument ``writes`` in place (the train state, the decode
+    caches); unless it is donated the step writes into a copy, which the
+    tally counts."""
+
+    def __init__(self, fn, args: tuple, writes=None, donate: bool = True):
+        self.fn = fn
+        self.args = args
+        self.writes = writes
+        self.donate = donate
+
+    def compile(self) -> Compiled:
+        from repro_torch.launch.hlo_cost import StepTally
+
+        with StepTally() as tally:
+            args = [_materialize(a) for a in self.args]
+            tally.mark_arguments(args)
+            if self.writes is not None and not self.donate:
+                args[self.writes] = tree_map(lambda t: t.clone(),
+                                             args[self.writes])
+            out = self.fn(*args)
+            tally.mark_outputs(out)
+            del out, args
+        return Compiled(tally)
+
+
+def lower_cell(arch_cfg, shape, mesh, donate: bool = True):
+    """Build the step for one (arch x shape x mesh) cell on abstract
+    inputs (``launch/specs.py``).
+
+    Returns (lowered, meta) where meta records what was lowered.
+    """
+    from repro_torch.launch import specs as specs_lib
+    from repro_torch.models.quantize import quant_struct_like
+    from repro_torch.parallel.sharding import ShapeDtypeStruct
+
+    lm = LM(arch_cfg, device="meta")
+    serving = shape.kind != "train"
+    fsdp = arch_cfg.fsdp and (arch_cfg.serving_fsdp if serving else True)
+    param_structs, _ = specs_lib.params_specs(lm, mesh, fsdp=fsdp)
+
+    if serving and arch_cfg.frozen_sparse_serving:
+        # paper technique: serving weights are frozen -> int8 storage
+        param_structs = quant_struct_like(param_structs)
+
+    if shape.kind == "train":
+        grad_sh = None
+        opt_base = param_structs
+        if not arch_cfg.expert_fsdp:
+            # ZeRO: grads + optimizer states fully sharded even though the
+            # expert weights stay EP-resident
+            _, grad_sh = specs_lib.params_specs(lm, mesh, fsdp=True,
+                                                expert_fsdp=True)
+            opt_base = tree_map(
+                lambda s, sh: ShapeDtypeStruct(s.shape, s.dtype, sh),
+                param_structs, grad_sh)
+        opt = specs_lib.opt_state_specs(opt_base, mesh,
+                                        dtype=arch_cfg.opt_dtype)
+        state = {"params": param_structs, "opt": opt}
+        batch = specs_lib.batch_specs(arch_cfg, shape, mesh)
+        fn = make_train_step(lm, mesh, grad_shardings=grad_sh)
+        lowered = Lowered(fn, (state, batch), 0, donate)
+        meta = {"step": "train_step", "donated": "state"}
+    elif shape.kind == "prefill":
+        batch = specs_lib.batch_specs(arch_cfg, shape, mesh)
+        fn = make_prefill_step(lm, mesh, cache_len=shape.seq_len)
+        lowered = Lowered(fn, (param_structs, batch))
+        meta = {"step": "prefill_step"}
+    else:  # decode
+        caches = specs_lib.cache_specs(lm, shape, mesh)
+        token = specs_lib.token_spec(shape, mesh)
+        fn = make_decode_step(lm, mesh)
+        lowered = Lowered(fn, (param_structs, caches, token), 1, donate)
+        meta = {"step": "serve_step", "donated": "caches"}
+    return lowered, meta

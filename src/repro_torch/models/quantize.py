@@ -23,15 +23,18 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import tree_map
+from repro_torch.parallel.sharding import (NamedSharding, ShapeDtypeStruct,
+                                           scale_spec)
 
 MIN_QUANT_SIZE = 1 << 16  # don't quantize norms/biases/small tables
 
 __all__ = ["MIN_QUANT_SIZE", "quantize_tree", "dequant_tree",
-           "is_quantized_leaf"]
+           "is_quantized_leaf", "quant_struct_like"]
 
 
 def _should_quantize(x) -> bool:
-    if not isinstance(x, torch.Tensor) or not x.dtype.is_floating_point:
+    if (not isinstance(x, (torch.Tensor, ShapeDtypeStruct))
+            or not x.dtype.is_floating_point):
         return False
     shape = tuple(x.shape)
     if int(np.prod(shape)) < MIN_QUANT_SIZE:
@@ -80,7 +83,11 @@ def quantize_tree(params: Any) -> Any:
 
 
 def dequant_tree(params: Any, dtype=torch.bfloat16) -> Any:
-    """Inverse of quantize_tree (no-op on unquantized leaves)."""
+    """Inverse of quantize_tree (no-op on unquantized leaves).  On a mesh
+    ``q`` and ``scale`` are DTensors placed by ``scale_spec``: the scale's
+    dims are split as the weight's out-channel (and layer) dims, so each
+    rank scales its own shard and the product keeps the weight's
+    placements, with no collective."""
 
     def one(x):
         if is_quantized_leaf(x):
@@ -94,3 +101,24 @@ def dequant_tree(params: Any, dtype=torch.bfloat16) -> Any:
         return x
 
     return tree_map(one, params, is_leaf=is_quantized_leaf)
+
+
+def quant_struct_like(struct: Any) -> Any:
+    """ShapeDtypeStruct tree -> the quantized-serving struct tree.
+
+    ``q`` inherits the original sharding; ``scale`` (out-channel vector)
+    takes the last axis' spec (``scale_spec``).
+    """
+
+    def one(sds):
+        if not _should_quantize(sds):
+            return sds
+        sh = sds.sharding
+        sc_shape = ((sds.shape[0], sds.shape[-1]) if len(sds.shape) >= 3
+                    else (sds.shape[-1],))
+        s_sh = (None if sh is None else
+                NamedSharding(sh.mesh, scale_spec(sh.spec, len(sds.shape))))
+        return {"q": ShapeDtypeStruct(sds.shape, torch.int8, sh),
+                "scale": ShapeDtypeStruct(sc_shape, torch.float32, s_sh)}
+
+    return tree_map(one, struct)

@@ -23,7 +23,8 @@ parameters, caches and activations are DTensors placed by the rules of
 reference's activation anchors (``shard_batch`` at the embeddings and the
 layer carry) and local regions where the reference uses ``shard_map``
 (the MoE's expert parallelism, ``_slstm_sharded``).  Int8 serving leaves
-on a mesh wait for ROADMAP A12f3.
+on a mesh are DTensors too: ``q`` placed as its weight, ``scale`` by the
+weight's out-channel dim, expanded shard by shard (``dequant_tree``).
 
 ``LM`` keeps the JAX package's functional API: parameters are a nested
 dict of tensors, ``loss`` / ``prefill`` / ``decode_step`` take them as
@@ -67,33 +68,12 @@ from repro_torch.parallel.sharding import (cache_sharding, distribute_tree,
 __all__ = ["LM", "ParallelCtx", "cache_spec", "lm_param_shardings",
            "lm_params_from_numpy", "train_state_from_numpy"]
 
-# what the port does not run yet, by ROADMAP item
-_WAITS = {
-    "int8_mesh": ("A12f3: int8 frozen-weight leaves on a device mesh (the "
-                  "reference's quant_struct_like) are not ported yet; serve "
-                  "int8 with mesh=None"),
-}
-
-
 @dataclasses.dataclass
 class ParallelCtx:
     mesh: Any = None
     data_axes: tuple = ("data",)
     model_axis: str = "model"
     fsdp: bool = True
-
-
-def _check_leaves(params, ctx) -> None:
-    """Int8 leaves run on one device only (ROADMAP A12f3)."""
-    if ctx.mesh is None:
-        return
-    stack = [params]
-    while stack:
-        t = stack.pop()
-        if is_quantized_leaf(t):
-            raise NotImplementedError(_WAITS["int8_mesh"])
-        if isinstance(t, dict):
-            stack.extend(t.values())
 
 
 # ---------------------------------------------------------------------------
@@ -492,7 +472,6 @@ class LM:
         (``make_train_step`` does).
         """
         ctx = ctx or ParallelCtx()
-        _check_leaves(params, ctx)
         cfg = self.cfg
         tokens = batch["tokens"]
         inp, labels = tokens[:, :-1], tokens[:, 1:]
@@ -574,7 +553,6 @@ class LM:
         output the caches keep under ``"enc"``.
         """
         ctx = ctx or ParallelCtx()
-        _check_leaves(params, ctx)
         cfg = self.cfg
         tokens = batch["tokens"]
         extra = batch.get("patches") if cfg.frontend == "vision" else None
@@ -594,7 +572,6 @@ class LM:
         """token: (B, 1). Returns (logits (B,1,V), caches), the caches
         advanced in place by one position."""
         ctx = ctx or ParallelCtx()
-        _check_leaves(params, ctx)
         cfg = self.cfg
         index = caches["index"]
         enc = caches.get("enc")
@@ -686,7 +663,8 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, *, device=None, mesh=None,
 
     With a ``mesh`` each leaf becomes a DTensor placed by ``shardings``
     (default ``lm_param_shardings(cfg, mesh)``): each rank keeps its own
-    shard of the NumPy array (int8 leaves on a mesh wait for A12f3)."""
+    shard of the NumPy array; an int8 leaf's ``q`` is placed as its weight
+    and its ``scale`` by the weight's out-channel dim (``distribute_tree``)."""
     dev = resolve_device(device)
     lm = LM(cfg, device="meta")
     like = lm._init(torch.Generator(), torch.device("meta")).params
@@ -708,7 +686,6 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, *, device=None, mesh=None,
     out = walk(tree, like)
     if mesh is None:
         return out
-    _check_leaves(out, ParallelCtx(mesh=mesh))
     return distribute_tree(out, shardings or lm_param_shardings(cfg, mesh))
 
 

@@ -29,10 +29,10 @@ import dataclasses
 import math
 from typing import Any, Optional
 
-__all__ = ["TP_AXES", "NamedSharding", "batch_sharding", "batch_spec",
-           "cache_sharding", "data_axis_names", "data_axis_size",
-           "distribute_tree",
-           "param_shardings", "placements", "resolve_axes"]
+__all__ = ["TP_AXES", "NamedSharding", "ShapeDtypeStruct", "batch_sharding",
+           "batch_spec", "cache_sharding", "data_axis_names",
+           "data_axis_size", "distribute_tree", "param_shardings",
+           "placements", "resolve_axes", "scale_spec"]
 
 TP_AXES = ("vocab", "heads", "kv", "ffn", "expert", "lru")
 
@@ -103,6 +103,28 @@ class NamedSharding:
     @property
     def placements(self) -> tuple:
         return placements(self.spec, self.mesh)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeDtypeStruct:
+    """A shape, a ``torch.dtype`` and an optional :class:`NamedSharding`:
+    an input that allocates nothing (the port's
+    ``jax.ShapeDtypeStruct``)."""
+
+    shape: tuple
+    dtype: Any
+    sharding: Optional[NamedSharding] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "shape", tuple(int(n) for n in self.shape))
+
+
+def scale_spec(spec: tuple, ndim: int) -> tuple:
+    """The spec of an int8 leaf's scale from its weight's: the out-channel
+    (last) dim's entry, after the layer dim's for a stacked (rank >= 3)
+    weight, as the reference's ``quant_struct_like`` places it."""
+    spec = tuple(spec) + (None,) * (ndim - len(spec))
+    return (spec[0], spec[-1]) if ndim >= 3 else (spec[-1],)
 
 
 def placements(spec: tuple, mesh) -> tuple:
@@ -193,11 +215,18 @@ def distribute_tree(tree: Any, shardings: Any) -> Any:
     """A tree of full tensors (the same on every rank) -> DTensors placed
     by the matching tree of :class:`NamedSharding`: each rank keeps only
     its own shard, cut locally (no communication).  On a mesh of one a
-    local shard may alias its source."""
+    local shard may alias its source.  An int8 leaf ``{"q", "scale"}``
+    facing its weight's sharding places ``q`` by it and ``scale`` by
+    :func:`scale_spec`."""
     from torch.distributed.tensor import distribute_tensor
 
     if tree is None:
         return None
+    if (isinstance(tree, dict) and set(tree) == {"q", "scale"}
+            and isinstance(shardings, NamedSharding)):
+        sh = shardings
+        shardings = {"q": sh, "scale": NamedSharding(
+            sh.mesh, scale_spec(sh.spec, tree["q"].ndim))}
     if isinstance(tree, dict):
         return {k: distribute_tree(v, shardings[k]) for k, v in tree.items()}
     return distribute_tensor(tree, shardings.mesh.device_mesh,

@@ -52,6 +52,12 @@ SERVE_SHAPE = (4, 16)
 CACHE_LEN = 24
 DECODE_STEPS = 4
 N_PATCHES = 4
+# int8 frozen-weight serving on the 2x2: the serve part's parameters and
+# tokens of these archs, quantized by each package's quantize_tree with
+# MIN_QUANT_SIZE lowered to INT8_MIN_QUANT (the reduced leaves are smaller
+# than the default 65536 elements; the stacked >= 3D ones then quantize)
+INT8_ARCHS = ("mistral-nemo-12b", "olmoe-1b-7b")
+INT8_MIN_QUANT = 256
 # two train steps on the 2x2: (arch, config overrides, ZeRO accumulators)
 TRAIN_CASES = {"stablelm-1.6b": ({"microbatches": 1}, False),
                "xlstm-350m": ({"microbatches": 1}, False),
@@ -158,7 +164,7 @@ def write_inputs(path: pathlib.Path, parts: tuple) -> None:
             (b, cfg.n_heads, cfg.head_dim), dtype=np.float32)
         out["psum|x"] = (3 * rng.standard_normal(PSUM_SHAPE)).astype(
             np.float32)
-    if "serve" in parts:
+    if "serve" in parts or "int8" in parts:
         for arch in SERVE_ARCHS:
             cfg = cfg_of(tcfg, arch)
             for k, v in params(cfg, 7).items():

@@ -167,6 +167,37 @@ def serve(inp, out):
             out[f"serve|{arch}|decode{i}"] = np.asarray(logits)
 
 
+def int8(inp, out):
+    """int8 frozen-weight serving on the 2x2, the leaves placed as
+    ``lower_cell`` places them (``quant_struct_like`` of the parameter
+    specs)."""
+    from repro.launch import specs
+    from repro.models import quantize as jquant
+
+    jquant.MIN_QUANT_SIZE = mc.INT8_MIN_QUANT
+    mesh = mesh_of("22")
+    for arch in mc.INT8_ARCHS:
+        cfg = mc.cfg_of(jcfg, arch)
+        lm = LM(cfg)
+        q = jquant.quantize_tree(np_tree(mc.sub(inp, f"serve|{arch}|p")))
+        structs, _ = specs.params_specs(lm, mesh,
+                                        fsdp=cfg.fsdp and cfg.serving_fsdp)
+        sh = jax.tree.map(lambda sds: sds.sharding,
+                          jquant.quant_struct_like(structs))
+        params = jax.device_put(q, sh)
+        toks = inp[f"serve|{arch}|tokens"]
+        s = mc.SERVE_SHAPE[1]
+        prefill = jax.jit(make_prefill_step(lm, mesh, mc.CACHE_LEN))
+        decode = jax.jit(make_decode_step(lm, mesh))
+        logits, caches = prefill(params, {"tokens": jnp.asarray(
+            toks[:, :s])})
+        out[f"int8|{arch}|prefill"] = np.asarray(logits)
+        for i in range(mc.DECODE_STEPS):
+            tok = jnp.asarray(toks[:, s + i:s + i + 1])
+            logits, caches = decode(params, caches, tok)
+            out[f"int8|{arch}|decode{i}"] = np.asarray(logits)
+
+
 def train(inp, out):
     mesh = mesh_of("22")
     for arch, (over, zero) in mc.TRAIN_CASES.items():
@@ -212,7 +243,7 @@ def cref8(inp, out):
 
 
 PARTS = {"blocks": (placements, moe, slstm, psum), "serve": (serve, cref8),
-         "train": (train,)}
+         "int8": (int8,), "train": (train,)}
 
 
 def main():

@@ -199,6 +199,33 @@ def serve(ctx, inp, out):
             out[f"serve|{arch}|decode{i}"] = full(logits)
 
 
+def int8(ctx, inp, out):
+    import repro_torch.configs as tcfg
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import quantize as tquant
+    from repro_torch.models.transformer import LM, lm_param_shardings
+    from repro_torch.parallel.sharding import distribute_tree
+
+    tquant.MIN_QUANT_SIZE = mc.INT8_MIN_QUANT
+    mesh = ctx["meshes"]["22"]
+    for arch in mc.INT8_ARCHS:
+        cfg = mc.cfg_of(tcfg, arch)
+        lm = LM(cfg, device="cpu")
+        q = tquant.quantize_tree(tree_of(mc.sub(inp, f"serve|{arch}|p")))
+        params = distribute_tree(q, lm_param_shardings(
+            cfg, mesh, fsdp=cfg.fsdp and cfg.serving_fsdp))
+        toks = inp[f"serve|{arch}|tokens"].astype(np.int64)
+        s = mc.SERVE_SHAPE[1]
+        logits, caches = make_prefill_step(lm, mesh, mc.CACHE_LEN)(
+            params, {"tokens": t(toks[:, :s])})
+        out[f"int8|{arch}|prefill"] = full(logits)
+        decode = make_decode_step(lm, mesh)
+        for i in range(mc.DECODE_STEPS):
+            logits, caches = decode(params, caches,
+                                    t(toks[:, s + i:s + i + 1]))
+            out[f"int8|{arch}|decode{i}"] = full(logits)
+
+
 def train(ctx, inp, out):
     import repro_torch.configs as tcfg
     from repro_torch.launch.steps import make_train_step
@@ -232,7 +259,8 @@ def train(ctx, inp, out):
 # (part, case, the world it runs in: 8 ranks or the first 4)
 PARTS = {"blocks": ((placements, 8), (moe, 4), (slstm, 4), (psum, 4),
                     (ckpt, 4)),
-         "serve": ((serve, 4),), "train": ((train, 4),)}
+         "serve": ((serve, 4),), "int8": ((int8, 4),),
+         "train": ((train, 4),)}
 
 
 def rank_main(rank, world, inputs, parts, workdir):

@@ -140,17 +140,54 @@ def test_deepseek_depth_cut_param_count_constant():
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_every_arch_builds_and_only_a_mesh_raises(arch):
-    """Every arch runs on a mesh (``test_torch_mesh_lm.py``) but for int8
-    frozen-weight leaves, which wait for ROADMAP A12f3."""
-    from repro_torch.models.transformer import ParallelCtx
-    cfg = tcfg.reduced(tcfg.get_config(arch))
+def test_every_arch_builds_and_only_a_mesh_raises(arch, tmp_path,
+                                                   monkeypatch):
+    """Every arch serves int8 frozen-weight leaves on a mesh: on a one-rank
+    gloo mesh (every placement ``Replicate``) the int8 prefill's and a
+    greedy decode step's logits equal ``mesh=None``'s bit for bit.  The
+    reduced leaves are under ``MIN_QUANT_SIZE``; the threshold is lowered
+    to 256 elements so the stacked leaves quantize."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import quantize as tquant
+    from repro_torch.models.transformer import lm_param_shardings
+    from repro_torch.parallel.sharding import distribute_tree
+
+    monkeypatch.setattr(tquant, "MIN_QUANT_SIZE", 256)
+    cfg = tcfg.reduced(tcfg.get_config(arch)).replace(dtype="float32")
     lm = LM(cfg, device="cpu")
-    params = {"embed": {"q": torch.zeros((2, 2), dtype=torch.int8),
-                        "scale": torch.ones(2)}}
-    with pytest.raises(NotImplementedError, match="A12f3"):
-        lm.prefill(params, {"tokens": torch.zeros((1, 2), dtype=torch.long)},
-                   cache_len=4, ctx=ParallelCtx(mesh=object()))
+    q = tquant.quantize_tree(lm.init(torch.Generator().manual_seed(0))
+                             .params)
+
+    def n_int8(tree):
+        if tquant.is_quantized_leaf(tree):
+            return 1
+        return sum(n_int8(v) for v in tree.values()) \
+            if isinstance(tree, dict) else 0
+
+    assert n_int8(q["groups"]) > 0
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 8), generator=g)}
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.randn(2, 4, cfg.d_model, generator=g)
+    if cfg.encoder is not None:
+        batch["frames"] = torch.randn(2, cfg.encoder.seq_len, cfg.d_model,
+                                      generator=g)
+    want, caches = make_prefill_step(lm, None, 12)(q, batch)
+    tok = want.argmax(-1)
+    want_d, _ = make_decode_step(lm, None)(q, caches, tok)
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(device="cpu")
+        qm = distribute_tree(q, lm_param_shardings(cfg, mesh))
+        got, caches = make_prefill_step(lm, mesh, 12)(qm, batch)
+        got_d, _ = make_decode_step(lm, mesh)(qm, caches, tok)
+        assert torch.equal(got.full_tensor(), want)
+        assert torch.equal(got_d.full_tensor(), want_d)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_lm_defaults_to_the_card():

@@ -14,6 +14,13 @@ logits and four teacher-forced decode steps' logits (mistral-nemo's one
 kv head holds its cache's sequence over 'model', so its decode reduces
 the softmax across ranks; deepseek's latent cache likewise).  ``FWD_TOL`` 1e-5 relative to the largest logit (the
 reference's own mesh-vs-none gap is ~1.7e-6).
+
+Int8 frozen-weight serving on the same 2x2 (``_mesh_cases.INT8_ARCHS``:
+GQA with a sequence-split cache, and the MoE): the serve part's
+parameters quantized by each package's ``quantize_tree`` (bit for bit the
+same leaves), placed as ``lower_cell`` places them (``q`` as its weight,
+``scale`` by the weight's out-channel dim), prefill and four decode steps
+within the same ``FWD_TOL``.
 """
 
 import numpy as np
@@ -27,7 +34,7 @@ TIMEOUT = 600.0
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return mc.shared_run(tmp_path_factory, "mesh_serve", ("serve",),
+    return mc.shared_run(tmp_path_factory, "mesh_serve", ("serve", "int8"),
                          TIMEOUT)
 
 
@@ -44,6 +51,17 @@ def test_serving_on_the_mesh_matches_reference(runs, arch, step):
     _, ref, port = runs
     want = ref[f"serve|{arch}|{step}"]
     got = port[f"serve|{arch}|{step}"]
+    assert got.shape == want.shape
+    assert rel(got, want) <= FWD_TOL
+
+
+@pytest.mark.parametrize("step", ["prefill"] + [
+    f"decode{i}" for i in range(mc.DECODE_STEPS)])
+@pytest.mark.parametrize("arch", mc.INT8_ARCHS)
+def test_int8_serving_on_the_mesh_matches_reference(runs, arch, step):
+    _, ref, port = runs
+    want = ref[f"int8|{arch}|{step}"]
+    got = port[f"int8|{arch}|{step}"]
     assert got.shape == want.shape
     assert rel(got, want) <= FWD_TOL
 

@@ -43,13 +43,6 @@ def _release_xla_executables():
 ROOT = pathlib.Path(__file__).resolve().parents[1] / "src"
 PORT, REF = ROOT / "repro_torch", ROOT / "repro"
 
-_A12_REPORT = ("A12f: the roofline's report half reads the dry-run "
-               "results of launch/dryrun.py, which is not ported yet")
-_A12_DRYRUN = ("A12f3: lowering a cell for the dry run and the "
-               "EXPERIMENTS.md tables read the dry run's results "
-               "(launch/dryrun.py, launch/specs.py), not ported yet")
-_A12_SPECS = ("A12f: sharded abstract specs (jax.ShapeDtypeStruct with a "
-              "NamedSharding) belong to the dry-run lowering, not ported yet")
 _DONATE = ("permanent departure: the helper mutes JAX's buffer-donation "
            "warning for the single-device and sharded dispatch paths; "
            "PyTorch writes the carry in place and has no warning to mute")
@@ -67,17 +60,6 @@ def _params_of(fn: str, *names) -> set:
 
 # module (relative path) -> {missing name: reason}
 EXCEPTIONS = {
-    "launch/roofline.py": dict.fromkeys(
-        ["RESULTS", "cell_report", "cell_report(rec=)", "load_all",
-         *_params_of("load_all", "mesh_dir", "variants"), "main",
-         "to_markdown", "to_markdown(reports=)"], _A12_REPORT),
-    "launch/report.py": dict.fromkeys(
-        ["ROOT", "dryrun_table", "roofline_table", "main"], _A12_DRYRUN),
-    "launch/steps.py": dict.fromkeys(
-        ["lower_cell", *_params_of("lower_cell", "arch_cfg", "donate",
-                                   "mesh", "shape")], _A12_DRYRUN),
-    "models/quantize.py": dict.fromkeys(
-        ["quant_struct_like", "quant_struct_like(struct=)"], _A12_SPECS),
     "dist/engine.py": dict.fromkeys(
         ["ShardedReservoirEngine(interpret=)"], _PALLAS),
     "dist/scheduler.py": dict.fromkeys(
@@ -158,11 +140,46 @@ DEPARTURES = {
             "torch DeviceMesh over the process group (one rank per "
             "device), and names and sizes without one"),
     },
-    "parallel/sharding.py": dict.fromkeys(
-        ["NamedSharding", "placements", "distribute_tree"],
-        "for jax.sharding.NamedSharding and jax.device_put: a spec's "
-        "DTensor placements, and a tree of full tensors cut into each "
-        "rank's shards"),
+    "parallel/sharding.py": {
+        **dict.fromkeys(
+            ["NamedSharding", "placements", "distribute_tree"],
+            "for jax.sharding.NamedSharding and jax.device_put: a spec's "
+            "DTensor placements, and a tree of full tensors cut into each "
+            "rank's shards"),
+        **dict.fromkeys(
+            ["ShapeDtypeStruct", "ShapeDtypeStruct.shape",
+             "ShapeDtypeStruct.dtype", "ShapeDtypeStruct.sharding"],
+            "for jax.ShapeDtypeStruct: an input of a shape, a torch dtype "
+            "and a NamedSharding that allocates nothing"),
+    },
+    "launch/mesh.py#dryrun": dict.fromkeys(
+        ["fake_world", "fake_world(world_size=)"],
+        "for XLA's 512 host devices of the dry run: a fake process group "
+        "of the production mesh's size, this process its rank 0"),
+    "launch/steps.py": dict.fromkeys(
+        ["Lowered", "Lowered.compile", "Lowered(fn=)", "Lowered(args=)",
+         "Lowered(writes=)", "Lowered(donate=)", "Compiled",
+         "Compiled.memory_analysis", "Compiled.cost_analysis",
+         "Compiled.walk", "Compiled.op_table", "Compiled(tally=)"],
+        "for jax.stages.Lowered / Compiled: the step run once on rank 0 "
+        "of a fake world on meta tensors, where XLA lowers and compiles "
+        "it on 512 host devices"),
+    "launch/hlo_cost.py": dict.fromkeys(
+        ["StepTally", "StepTally.mark_arguments",
+         "StepTally.mark_arguments(args=)", "StepTally.mark_outputs",
+         "StepTally.mark_outputs(out=)", "StepTally.memory",
+         "StepTally.walk"],
+        "for the HLO text the walker reads (the port makes none): a FLOP, "
+        "collective-byte and live-byte tally of the step's operations; "
+        "the walker itself is copied"),
+    "launch/specs.py": dict.fromkeys(
+        ["TOKEN_DTYPE"],
+        "int64 token ids, the dtype the port's embedding lookup and cross "
+        "entropy index with (the reference's are int32)"),
+    "launch/report.py": dict.fromkeys(
+        ["HBM_GB"],
+        "the H100's 80 GB per card for the reference's 16 GB (a literal "
+        "in the reference's table)"),
     "parallel/act.py": dict.fromkeys(
         ["to_local", "from_local"],
         "for shard_map's in_specs / out_specs: the two ends of a local "
@@ -239,12 +256,51 @@ def test_every_exception_names_a_ported_module():
     assert all(reason for ex in EXCEPTIONS.values() for reason in ex.values())
 
 
+# names both packages have, bound to another value in the port (module ->
+# {name: (reason, the port's value must contain)})
+VALUES = {
+    "launch/dryrun.py": {"RESULTS": (
+        "the port's own results directory, so the two packages' records "
+        "never overwrite each other", "dryrun_torch")},
+    "launch/roofline.py": {"RESULTS": (
+        "reads the port's dry-run records", "dryrun_torch")},
+}
+
+
 @pytest.mark.parametrize("module", sorted(DEPARTURES))
 def test_departures_exist_in_the_port_only(module):
     listed = set(DEPARTURES[module])
+    path = module.split("#")[0]
     assert all(DEPARTURES[module].values())
-    assert listed <= public_names(PORT / module)
-    assert not listed & public_names(REF / module)
+    assert listed <= public_names(PORT / path)
+    assert not listed & public_names(REF / path)
+
+
+def _assigned(path: pathlib.Path, name: str) -> str:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and getattr(node.targets[0], "id", None) == name):
+            return ast.unparse(node.value)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("module", sorted(VALUES))
+def test_value_departures_differ_from_the_reference(module):
+    for name, (reason, marker) in VALUES[module].items():
+        assert reason
+        port, ref = _assigned(PORT / module, name), _assigned(REF / module,
+                                                              name)
+        assert marker in port and marker not in ref and port != ref
+
+
+def test_every_reference_module_has_a_port_counterpart():
+    """A file-by-file diff of the two packages: no reference module may go
+    missing from the port unseen."""
+    ref = {str(p.relative_to(REF)) for p in REF.rglob("*.py")}
+    port = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert sorted(ref - port) == []
+    assert len(MODULES) == len(ref)
 
 
 def test_walk_sees_methods_fields_and_parameters(tmp_path):

@@ -521,16 +521,42 @@ def test_loss_streams_the_vocab_above_2_to_the_24(monkeypatch):
     assert abs(float(loss) - float(dense)) <= LOSS_TOL
 
 
-def test_loss_waits_for_a_mesh():
-    """The loss runs on a mesh (``test_torch_mesh_train.py``) but for int8
-    leaves, which wait for ROADMAP A12f3."""
-    cfg = tcfg.reduced(tcfg.get_config("stablelm-1.6b"))
+def test_loss_waits_for_a_mesh(tmp_path, monkeypatch):
+    """The loss runs on a mesh with int8 frozen-weight leaves too: on a
+    one-rank gloo mesh it equals ``mesh=None``'s bit for bit (the leaves
+    expanded shard by shard; ``MIN_QUANT_SIZE`` lowered to 256 so the
+    reduced config's stacked leaves quantize)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_ctx
+    from repro_torch.models import quantize as tquant
+    from repro_torch.models.transformer import lm_param_shardings
+    from repro_torch.parallel.act import activation_mesh
+    from repro_torch.parallel.sharding import distribute_tree
+
+    monkeypatch.setattr(tquant, "MIN_QUANT_SIZE", 256)
+    cfg = tcfg.reduced(tcfg.get_config("stablelm-1.6b")).replace(
+        dtype="float32")
     lm = LM(cfg, device=CPU)
-    params = {"embed": {"q": torch.zeros((2, 2), dtype=torch.int8),
-                        "scale": torch.ones(2)}}
-    with pytest.raises(NotImplementedError, match="A12f3"):
-        lm.loss(params, {"tokens": torch.zeros(1, 3, dtype=torch.long)},
-                ParallelCtx(mesh=object()))
+    q = tquant.quantize_tree(lm.init(torch.Generator().manual_seed(0))
+                             .params)
+    assert tquant.is_quantized_leaf(q["groups"]["b0"]["mlp"]["w_up"])
+    rng = np.random.default_rng(0)
+    batch = {"tokens": t(rng.integers(0, cfg.vocab_size, (2, 9)))}
+    with torch.no_grad():
+        want = lm.loss(q, batch)
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(device="cpu")
+        qm = distribute_tree(q, lm_param_shardings(cfg, mesh))
+        ctx = make_ctx(mesh, cfg)
+        with torch.no_grad(), activation_mesh(mesh, ctx.data_axes,
+                                              ctx.model_axis):
+            got = lm.loss(qm, batch, ctx)
+        assert torch.equal(got.full_tensor(), want)
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
