@@ -143,8 +143,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    Four ranks on the one card need gloo (NCCL takes one rank per GPU): in
    ``tools/probe_mesh.py`` gloo carried all-reduce, all-gather and
    reduce-scatter of CUDA tensors among them, but the ranks died (SIGSEGV)
-   in a 2 x 2 DTensor mesh over them, so the multi-rank path is held by
-   the CPU tests alone.  No kernel of B1-B5 may launch
+   in a 2 x 2 DTensor mesh over them (ROADMAP C-port-9), so the
+   multi-rank path is held by the CPU tests alone.  No kernel of B1-B5 may launch
    (``launches_lm_mesh``);
 14. ``dryrun`` (after ``mesh``): the dry run (``launch/dryrun.py``,
    ``lower_cell``: a step run once on rank 0 of a fake process group on
@@ -158,16 +158,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    parameters) prefilled at 4 x 512 and decoded 8 greedy steps on the
    ``(1, 1)`` NCCL mesh (int8 leaves placed as ``lower_cell`` places
    them) against ``mesh=None``: tokens and last logits bit for bit, ms per
-   decode step of both; (c) three full-width cells on the 16 x 16 fake
-   mesh (stablelm-1.6b train_4k, mistral-nemo-12b decode_32k,
-   olmoe-1b-7b prefill_32k), each through ``python -m
-   repro_torch.launch.dryrun --cell`` in a subprocess of its own, started
-   before (a) and run on the host's cores beside it: each ends ``ok``,
-   its ``param_count`` equals the meta LM's and its argument bytes the
-   shard bytes the sharding rules give rank 0; peak GB per device and
-   whether it fits 80 GB, dot FLOPs per device, the useful ratio, the
+   decode step of both; (c) seven full-width cells: stablelm-1.6b
+   train_4k, mistral-nemo-12b decode_32k and olmoe-1b-7b prefill_32k on
+   the 16 x 16 fake mesh and on the 2 x 16 x 16 (``--multi-pod``), and
+   olmoe-1b-7b train_4k on the 16 x 16, each through ``python -m
+   repro_torch.launch.dryrun --cell`` in a subprocess of its own (all
+   seven at once), started before (a) and run on the host's
+   cores beside it: each ends ``ok``, its ``param_count`` equals the meta
+   LM's and its argument bytes the shard bytes the sharding rules give
+   rank 0 of its own mesh, and its per-device dot FLOPs under this
+   host's torch come within DRYRUN_FLOP_RTOL of DRYRUN_FLOPS (the same
+   cell's count under another torch version, both versions printed);
+   peak GB per device and whether it fits 80 GB, the useful ratio, the
    collective bytes by kind (beside ``tools/mesh_bytes.py``'s) and the
-   seconds per cell.  No kernel of B1-B5 may launch
+   seconds per cell and of the seven.  No kernel of B1-B5 may launch
    (``launches_lm_dryrun``);
 5. times each kernel per launch at the LARGE_1024 shape with CUDA events
    and the profiler, beside its plain twin, one PyTorch call computing the
@@ -304,21 +308,40 @@ MESH_DECODE_STEPS = 8
 # against one real step on the card: the dot FLOPs equal, the predicted
 # peak within DRYRUN_PEAK_RATIO of max_memory_allocated; (b) int8 serving
 # of LM_ARCH on the (1, 1) NCCL mesh against mesh=None, DRYRUN_PROMPT and
-# DRYRUN_DECODE_STEPS greedy steps; (c) DRYRUN_CELLS at full width on the
-# 16 x 16 production mesh, each through the dry-run CLI in a subprocess
-# of its own (all three at once), within DRYRUN_CELL_TIMEOUT seconds.
-# MESH_BYTES are tools/mesh_bytes.py's computed bytes per rank of the
-# explicit redistributes of those cells (PERF.md), printed beside the dry
-# run's collective bytes.
+# DRYRUN_DECODE_STEPS greedy steps; (c) DRYRUN_CELLS (arch, shape,
+# multi-pod) at full width on the 16 x 16 or 2 x 16 x 16 production mesh,
+# each through the dry-run CLI in a subprocess of its own (all at
+# once), within DRYRUN_CELL_TIMEOUT seconds of its
+# start.  DRYRUN_FLOPS are the cells' per-device dot FLOPs from the dry
+# run on the CPU under torch DRYRUN_FLOPS_TORCH (PERF.md); the card host's
+# torch must come within DRYRUN_FLOP_RTOL of each.  MESH_BYTES are
+# tools/mesh_bytes.py's computed bytes per rank of the explicit
+# redistributes of the 16 x 16 cells, the sum of its rows for each cell
+# (for olmoe train_4k the MoE's rows only; PERF.md), printed beside the
+# dry run's collective bytes.
 DRYRUN_PEAK_RATIO = (0.5, 2.0)
 DRYRUN_PROMPT = (4, 512)
 DRYRUN_DECODE_STEPS = 8
-DRYRUN_CELLS = (("stablelm-1.6b", "train_4k"),
-                ("mistral-nemo-12b", "decode_32k"),
-                ("olmoe-1b-7b", "prefill_32k"))
+DRYRUN_CELLS = (("stablelm-1.6b", "train_4k", False),
+                ("mistral-nemo-12b", "decode_32k", False),
+                ("olmoe-1b-7b", "prefill_32k", False),
+                ("stablelm-1.6b", "train_4k", True),
+                ("mistral-nemo-12b", "decode_32k", True),
+                ("olmoe-1b-7b", "prefill_32k", True),
+                ("olmoe-1b-7b", "train_4k", False))
 DRYRUN_CELL_TIMEOUT = 600
-MESH_BYTES = {("stablelm-1.6b", "train_4k"): 262_144,
-              ("mistral-nemo-12b", "decode_32k"): 5_324_800}
+DRYRUN_FLOPS_TORCH = "2.13.0+cpu"
+DRYRUN_FLOPS = {("stablelm-1.6b", "train_4k", False): 58067957841920.0,
+                ("mistral-nemo-12b", "decode_32k", False): 28605153280.0,
+                ("olmoe-1b-7b", "prefill_32k", False): 28312450170880.0,
+                ("stablelm-1.6b", "train_4k", True): 29033978920960.0,
+                ("mistral-nemo-12b", "decode_32k", True): 14302576640.0,
+                ("olmoe-1b-7b", "prefill_32k", True): 14156225085440.0,
+                ("olmoe-1b-7b", "train_4k", False): 55052890800128.0}
+DRYRUN_FLOP_RTOL = 0.01
+MESH_BYTES = {("stablelm-1.6b", "train_4k"): 33_107_148_800,
+              ("mistral-nemo-12b", "decode_32k"): 5_324_800,
+              ("olmoe-1b-7b", "train_4k"): 5_804_916_736}
 
 # Published H100 SXM peaks (NVIDIA data sheet) used for the bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -2139,7 +2162,7 @@ class Smoke:
     # -- dryrun ------------------------------------------------------------
     def dryrun(self):
         """The dry run held against the card: (a) the train phase's step,
-        (b) int8 serving on the (1, 1) mesh, (c) three production cells
+        (b) int8 serving on the (1, 1) mesh, (c) seven production cells
         through the CLI (started first: they run on the host's cores while
         (a) and (b) use the card).  Counts every kernel's launches over
         the phase (must be 0)."""
@@ -2148,12 +2171,12 @@ class Smoke:
             fn.launches = 0
         self._readout.fused_launches = 0
         print(f"dryrun on {self.card}")
-        procs = self._dryrun_start_cells()
+        cells = self._dryrun_start_cells()
         try:
             self._dryrun_train()
             self._dryrun_int8()
         finally:
-            self._dryrun_cells(procs)
+            self._dryrun_cells(cells)
         made = {k: fn.launches for k, fn in counters.items()}
         made["rollout_readout"] += self._readout.fused_launches
         self.dryrun_launches = made
@@ -2162,16 +2185,22 @@ class Smoke:
                    "reservoir kernel")
 
     def _dryrun_start_cells(self):
+        """(c) Start every cell of DRYRUN_CELLS, each in a process of its
+        own; returns {cell: (process, log, start)}."""
         out = ROOT / "build" / "dryrun_cells"
         out.mkdir(parents=True, exist_ok=True)
         procs = {}
-        for arch, shape in DRYRUN_CELLS:
-            log = open(out / f"{arch}__{shape}.log", "w")
+        for cell in DRYRUN_CELLS:
+            arch, shape, multi_pod = cell
+            mesh = "2x16x16" if multi_pod else "16x16"
+            log = open(out / f"{arch}__{shape}__{mesh}.log", "w")
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                    "--cell", arch, shape, "--force", "--no-hlo"]
+            if multi_pod:
+                cmd.append("--multi-pod")
             env = dict(os.environ,
                        PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
-            procs[(arch, shape)] = (subprocess.Popen(
+            procs[cell] = (subprocess.Popen(
                 cmd, stdout=log, stderr=subprocess.STDOUT, env=env,
                 cwd=str(ROOT)), log, time.perf_counter())
         return procs
@@ -2330,6 +2359,23 @@ class Smoke:
 
     def _dryrun_cells(self, procs):
         """(c) Wait for the CLI's cells and hold each record."""
+        t0 = min(start for _, _, start in procs.values())
+        for cell, (proc, log, start) in procs.items():
+            try:
+                rc = proc.wait(timeout=max(
+                    DRYRUN_CELL_TIMEOUT - (time.perf_counter() - start), 1))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+            log.close()
+            self._dryrun_cell(cell, rc, log, time.perf_counter() - start)
+        print(f"(c) the {len(DRYRUN_CELLS)} cells took "
+              f"{time.perf_counter() - t0:.1f} s on the host, all at once, "
+              f"torch {self.torch.__version__}")
+
+    def _dryrun_cell(self, cell, rc, log, secs):
+        """One cell's record held: status, param_count, argument bytes
+        against the rules on its own mesh, dot FLOPs against DRYRUN_FLOPS."""
         import math
         from repro_torch.configs import SHAPES, get_config
         from repro_torch.launch import roofline as rf
@@ -2339,7 +2385,10 @@ class Smoke:
         from repro_torch.launch.mesh import AbstractMesh
         from repro_torch.models.common import tree_leaves
         from repro_torch.models.transformer import LM
-        mesh = AbstractMesh((16, 16), ("data", "model"))
+        arch, shape, multi_pod = cell
+        mesh = (AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+                if multi_pod else AbstractMesh((16, 16), ("data", "model")))
+        where = "2 x 16 x 16" if multi_pod else "16 x 16"
 
         def shard_bytes(tree):
             total = 0
@@ -2352,64 +2401,65 @@ class Smoke:
                 total += math.prod(local) * sds.dtype.itemsize
             return total
 
-        for (arch, shape), (proc, log, t0) in procs.items():
-            try:
-                rc = proc.wait(timeout=max(
-                    DRYRUN_CELL_TIMEOUT - (time.perf_counter() - t0), 1))
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                rc = proc.wait()
-            log.close()
-            secs = time.perf_counter() - t0
-            p = cell_path(arch, shape, False)
-            rec = json.loads(p.read_text()) if p.exists() else {}
-            ok = rc == 0 and rec.get("status") == "ok"
-            self.check(ok, f"dry-run cell {arch} {shape}: exit {rc}, status "
-                       f"{rec.get('status')} {rec.get('error', '')}")
-            if not ok:
-                print(f"(c) {arch} {shape}: FAILED, log tail:\n"
-                      + pathlib.Path(log.name).read_text()[-3000:])
-                continue
-            cfg = get_config(arch)
-            lm = LM(cfg, device="meta")
-            n = lm.param_count()
-            sh = SHAPES[shape]
-            fsdp = cfg.fsdp and (cfg.serving_fsdp if sh.kind != "train"
-                                 else True)
-            structs, _ = specs.params_specs(lm, mesh, fsdp=fsdp)
-            if sh.kind == "train":
-                expect = (shard_bytes(structs) + shard_bytes(
-                    specs.opt_state_specs(structs, mesh, cfg.opt_dtype))
-                    + shard_bytes(specs.batch_specs(cfg, sh, mesh)))
-            elif sh.kind == "prefill":
-                expect = (shard_bytes(structs)
-                          + shard_bytes(specs.batch_specs(cfg, sh, mesh)))
-            else:
-                expect = (shard_bytes(structs)
-                          + shard_bytes(specs.cache_specs(lm, sh, mesh))
-                          + shard_bytes({"t": specs.token_spec(sh, mesh)}))
-            mem, walk = rec["memory_per_device"], rec["hlo_walk"]
-            rep = rf.cell_report(rec)
-            peak_gb = mem["peak_bytes"] / 1e9
-            print(f"(c) {arch} {shape} on 16 x 16 ({rec['step']}): "
-                  f"{secs:.1f} s (lower {rec['t_lower_s']} s, run "
-                  f"{rec['t_compile_s']} s); param_count "
-                  f"{rec['param_count']:,} (meta LM {n:,}); argument bytes "
-                  f"{mem['argument_bytes']:,} (rules {expect:,}); peak "
-                  f"{peak_gb:.2f} GB per device, fits {HBM_GB} GB: "
-                  f"{peak_gb <= HBM_GB}; dot FLOPs per device "
-                  f"{walk['dot_flops']!r}, useful ratio 6ND / (dot x 256) "
-                  f"{rep['useful_ratio']!r}; collective bytes per rank "
-                  f"{walk['collective_bytes']} (total "
-                  f"{walk['total_collective_bytes']!r}; tools/mesh_bytes.py's "
-                  f"explicit redistributes "
-                  f"{MESH_BYTES.get((arch, shape), 'n/a')}); dominant "
-                  f"{rep['dominant']}")
-            self.check(rec["param_count"] == n, f"{arch} dry-run "
-                       f"param_count {rec['param_count']} != {n}")
-            self.check(mem["argument_bytes"] == expect, f"{arch} {shape} "
-                       f"argument bytes {mem['argument_bytes']} != the "
-                       f"rules' {expect}")
+        p = cell_path(arch, shape, multi_pod)
+        rec = json.loads(p.read_text()) if p.exists() else {}
+        ok = rc == 0 and rec.get("status") == "ok"
+        self.check(ok, f"dry-run cell {arch} {shape} on {where}: exit {rc}, "
+                   f"status {rec.get('status')} {rec.get('error', '')}")
+        if not ok:
+            print(f"(c) {arch} {shape} on {where}: FAILED within "
+                  f"{secs:.1f} s, log tail:\n"
+                  + pathlib.Path(log.name).read_text()[-3000:])
+            return
+        cfg = get_config(arch)
+        lm = LM(cfg, device="meta")
+        n = lm.param_count()
+        sh = SHAPES[shape]
+        fsdp = cfg.fsdp and (cfg.serving_fsdp if sh.kind != "train"
+                             else True)
+        structs, _ = specs.params_specs(lm, mesh, fsdp=fsdp)
+        if sh.kind == "train":
+            expect = (shard_bytes(structs) + shard_bytes(
+                specs.opt_state_specs(structs, mesh, cfg.opt_dtype))
+                + shard_bytes(specs.batch_specs(cfg, sh, mesh)))
+        elif sh.kind == "prefill":
+            expect = (shard_bytes(structs)
+                      + shard_bytes(specs.batch_specs(cfg, sh, mesh)))
+        else:
+            expect = (shard_bytes(structs)
+                      + shard_bytes(specs.cache_specs(lm, sh, mesh))
+                      + shard_bytes({"t": specs.token_spec(sh, mesh)}))
+        mem, walk = rec["memory_per_device"], rec["hlo_walk"]
+        rep = rf.cell_report(rec)
+        peak_gb = mem["peak_bytes"] / 1e9
+        want = DRYRUN_FLOPS[cell]
+        dot = walk["dot_flops"]
+        gap = abs(dot - want) / want
+        print(f"(c) {arch} {shape} on {where} ({rec['step']}): lower "
+              f"{rec['t_lower_s']} s, run {rec['t_compile_s']} s (ended "
+              f"within {secs:.1f} s of its start); param_count "
+              f"{rec['param_count']:,} (meta LM {n:,}); argument bytes "
+              f"{mem['argument_bytes']:,} (rules {expect:,}); peak "
+              f"{peak_gb:.2f} GB per device, fits {HBM_GB} GB: "
+              f"{peak_gb <= HBM_GB}; dot FLOPs per device {dot!r} under "
+              f"torch {self.torch.__version__}, {want!r} under torch "
+              f"{DRYRUN_FLOPS_TORCH} (gap {gap:.3e}, limit "
+              f"{DRYRUN_FLOP_RTOL}); useful ratio 6ND / (dot x "
+              f"{rec['n_devices']}) {rep['useful_ratio']!r}; collective "
+              f"bytes per rank {walk['collective_bytes']} (total "
+              f"{walk['total_collective_bytes']!r}; tools/mesh_bytes.py's "
+              f"explicit redistributes "
+              f"{'n/a' if multi_pod else MESH_BYTES.get((arch, shape), 'n/a')}"
+              f"); dominant {rep['dominant']}")
+        self.check(rec["param_count"] == n, f"{arch} dry-run "
+                   f"param_count {rec['param_count']} != {n}")
+        self.check(mem["argument_bytes"] == expect, f"{arch} {shape} on "
+                   f"{where}: argument bytes {mem['argument_bytes']} != the "
+                   f"rules' {expect}")
+        self.check(gap <= DRYRUN_FLOP_RTOL, f"{arch} {shape} on {where}: "
+                   f"dot FLOPs per device {dot} under torch "
+                   f"{self.torch.__version__}, {want} under torch "
+                   f"{DRYRUN_FLOPS_TORCH}")
 
     def _train_breakdown(self, lm, state, batch):
         """Where a step's time goes (CUDA events, ms, each after a warm-up

@@ -30,6 +30,15 @@ dispatch modes see the step's operations:
     bytes under the walker's op kinds, and every storage it allocates
     into a tally of live bytes whose maximum is the step's peak.
 
+Each operation is also kept by its kind, op and shapes (``ops``: the
+local products' shapes, a collective's output shape and group size, a
+DTensor product's global shapes and placements), which the dry run's op
+table lists.  On a ``("pod", "data", "model")`` mesh the DTensor mesh
+has one dim for pod x data, so a collective over both is one collective
+over their combined group (group size pod x data), where two nested
+mesh dims would issue two in sequence: XLA's collectives over the
+combined replica groups count the same way.
+
 Three DTensor internals are adjusted while a tally runs, none of which
 changes what a step computes: the shape propagation DTensor runs at global
 shapes is hidden from the tally
@@ -266,6 +275,8 @@ class StepTally:
         self._registry = flop_registry
         self.flops = defaultdict(float)
         self.coll = defaultdict(float)
+        # per operation: (kind, op, shapes) -> [count, FLOPs or bytes]
+        self.ops = defaultdict(lambda: [0, 0.0])
         self.global_flops = 0.0
         self.n_ops = 0
         self.live = 0
@@ -306,19 +317,30 @@ class StepTally:
         pk = func._overloadpacket
         if pk in self._registry:
             n = self._registry[pk](*args, **kwargs, out_val=out)
-            self.flops["conv" if "conv" in pk.__name__ else "dot"] += n
+            kind = "conv" if "conv" in pk.__name__ else "dot"
+            self.flops[kind] += n
+            self._note(kind, pk.__name__, _shapes(args), n)
             return
         kind = _collective_kind(func)
         if kind is not None:
             b = sum(t.numel() * t.element_size() for t in _tensors(out))
-            self.coll[kind] += (2.0 if kind == "all-reduce" else 1.0) * b
+            b *= 2.0 if kind == "all-reduce" else 1.0
+            self.coll[kind] += b
+            self._note(kind, pk.__name__, _shapes(out) + " group "
+                       + _group_size(args), b)
+
+    def _note(self, kind, op, shapes, amount) -> None:
+        rec = self.ops[(kind, op, shapes)]
+        rec[0] += 1
+        rec[1] += amount
 
     def _global(self, func, args, kwargs) -> None:
         pk = func._overloadpacket
         if (self._counting and not self._propagating.n
                 and pk in self._registry and "conv" not in pk.__name__):
-            self.global_flops += self._registry[pk](*args, **kwargs,
-                                                    out_val=None)
+            n = self._registry[pk](*args, **kwargs, out_val=None)
+            self.global_flops += n
+            self._note("global", pk.__name__, _shapes(args, placed=True), n)
 
     # -- context ---------------------------------------------------------------
     def __enter__(self):
@@ -432,6 +454,31 @@ class StepTally:
             "collective_bytes": dict(self.coll),
             "total_collective_bytes": float(sum(self.coll.values())),
         }
+
+
+def _shapes(tree, placed: bool = False) -> str:
+    """The shapes of a call's tensors, ``x``-joined per tensor (with a
+    DTensor's placements when ``placed``)."""
+    out = []
+    for t in _tensors(tree):
+        s = "x".join(str(n) for n in t.shape) or "()"
+        if placed and hasattr(t, "placements"):
+            s += "[" + ",".join(_short(p) for p in t.placements) + "]"
+        out.append(s)
+    return " ".join(out)
+
+
+def _short(p) -> str:
+    """``S<dim>`` for a shard, else the placement's initial (R, P)."""
+    return f"S{p.dim}" if hasattr(p, "dim") else type(p).__name__[0]
+
+
+def _group_size(args) -> str:
+    """The size of the group a functional collective runs over (its last
+    string argument names the group), or ``?``."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    names = [a for a in args if isinstance(a, str)]
+    return str(_resolve_process_group(names[-1]).size()) if names else "?"
 
 
 def _locals(tree):

@@ -7,7 +7,11 @@ The LM mesh (:class:`LMMesh`, :func:`make_production_mesh`,
 per device as ``torch.distributed`` runs (the JAX package drives every
 device of a host from one process).  It exposes ``axis_names`` and a
 ``shape`` mapping, which is all the sharding rules read, and its
-``device_mesh`` carries the DTensors.  The caller sets up the process
+``device_mesh`` carries the DTensors: on a ``("pod", "data", "model")``
+mesh that one has a single dim of pod x data ranks, pod outer, beside
+'model' (``parallel/sharding.mesh_dims``), and the named mesh over the
+same ranks gives the coordinates and each axis's process group.  The
+caller sets up the process
 group first (``torch.distributed.init_process_group`` with its store,
 world size and rank); a CUDA mesh needs the NCCL backend and one card per
 process, a CPU mesh gloo.  The dry run's mesh runs over a fake process
@@ -65,17 +69,29 @@ class AbstractMesh:
 @dataclasses.dataclass(frozen=True)
 class LMMesh:
     """A named ``DeviceMesh`` over this process group (one rank per
-    device); ``axis_names`` and ``shape`` as the rules read them."""
+    device); ``axis_names`` and ``shape`` as the rules read them.
+
+    ``device_mesh`` carries the DTensors: one dim per named axis, but
+    'pod' and 'data' one dim together, pod outer (``sharding.mesh_dims``).
+    Where the two differ, ``axis_mesh`` has one dim per named axis over
+    the same ranks in the same order: the names, sizes, coordinates and
+    the process group of each axis are read from it.  ``axis_mesh`` is
+    ``None`` when the DTensor mesh is the named one (no 'pod')."""
 
     device_mesh: object
+    axis_mesh: object = None
+
+    @property
+    def _named(self):
+        return self.device_mesh if self.axis_mesh is None else self.axis_mesh
 
     @property
     def axis_names(self) -> tuple:
-        return tuple(self.device_mesh.mesh_dim_names)
+        return tuple(self._named.mesh_dim_names)
 
     @property
     def shape(self) -> dict:
-        return dict(zip(self.axis_names, self.device_mesh.shape))
+        return dict(zip(self.axis_names, self._named.shape))
 
     @property
     def size(self) -> int:
@@ -90,11 +106,40 @@ class LMMesh:
 
     def coordinate(self) -> dict:
         """This rank's index along each named axis."""
-        return dict(zip(self.axis_names, self.device_mesh.get_coordinate()))
+        return dict(zip(self.axis_names, self._named.get_coordinate()))
 
     def axis_group(self, axis: str):
         """The process group of the ranks that differ only along ``axis``."""
-        return self.device_mesh.get_group(axis)
+        return self._named.get_group(axis)
+
+
+def _lm_mesh(device_type: str, shape: tuple, axis_names: tuple,
+             ranks=None) -> LMMesh:
+    """The named mesh and, where 'pod' and 'data' share a DTensor mesh
+    dim, the DTensor mesh beside it, both row-major over the same ranks:
+    rank ``r`` at the same place in both.  ``ranks`` (an array of the
+    mesh's shape) builds it over some ranks of the world, which every
+    rank of the world must then call; ``None`` takes every rank."""
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+    from repro_torch.parallel.sharding import mesh_dim_sizes, mesh_dims
+
+    names = tuple(axis_names)
+
+    def mesh(sizes, dim_names):
+        if ranks is None:
+            return init_device_mesh(device_type, tuple(sizes),
+                                    mesh_dim_names=dim_names)
+        return DeviceMesh(device_type, torch.as_tensor(ranks).reshape(sizes),
+                          mesh_dim_names=dim_names)
+
+    named = mesh(shape, names)
+    abstract = AbstractMesh(tuple(shape), names)
+    dims = mesh_dims(abstract)
+    if len(dims) == len(names):
+        return LMMesh(named)
+    merged = mesh(mesh_dim_sizes(abstract), tuple("_".join(g) for g in dims))
+    return LMMesh(merged, named)
 
 
 def make_mesh(shape: tuple, axis_names: tuple, device=None) -> LMMesh:
@@ -106,7 +151,6 @@ def make_mesh(shape: tuple, axis_names: tuple, device=None) -> LMMesh:
     fake process group (:func:`fake_world`) the mesh is CPU-typed and
     ``device`` is not read."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError(
@@ -119,8 +163,7 @@ def make_mesh(shape: tuple, axis_names: tuple, device=None) -> LMMesh:
                          f"process group has {dist.get_world_size()}")
     backend = dist.get_backend()
     if backend == "fake":
-        return LMMesh(init_device_mesh("cpu", tuple(shape),
-                                       mesh_dim_names=tuple(axis_names)))
+        return _lm_mesh("cpu", shape, axis_names)
     dev = resolve_device(device)
     if dev.type == "cuda":
         if backend != "nccl":
@@ -130,8 +173,7 @@ def make_mesh(shape: tuple, axis_names: tuple, device=None) -> LMMesh:
     elif backend != "gloo":
         raise RuntimeError(f"a CPU mesh runs on gloo, the process group's "
                            f"backend is {backend}")
-    return LMMesh(init_device_mesh(dev.type, tuple(shape),
-                                   mesh_dim_names=tuple(axis_names)))
+    return _lm_mesh(dev.type, shape, axis_names)
 
 
 @contextlib.contextmanager

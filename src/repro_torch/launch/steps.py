@@ -52,7 +52,7 @@ def make_ctx(mesh, cfg=None) -> ParallelCtx:
 
 def _with_act_ctx(fn, mesh, ctx):
     """Run fn under the activation-sharding context, so the in-model
-    ``shard_batch`` anchors constrain the DTensors."""
+    anchors (``shard_batch``, ``pin``) constrain the DTensors."""
     if mesh is None:
         return fn
 
@@ -286,8 +286,9 @@ class Compiled:
         return self._tally.walk()
 
     def op_table(self) -> str:
-        """Per-device FLOPs and collective bytes by kind, one per line
-        (the artefact the dry run saves where the reference saves HLO)."""
+        """Per-device FLOPs and collective bytes by kind, one per line,
+        then one line per operation (the artefact the dry run saves where
+        the reference saves HLO)."""
         w = self.walk()
         lines = [f"dot_flops {w['dot_flops']!r}",
                  f"conv_flops {w['conv_flops']!r}",
@@ -296,6 +297,12 @@ class Compiled:
         lines += [f"collective {k} {v!r}"
                   for k, v in sorted(w["collective_bytes"].items())]
         lines += [f"memory {k} {v}" for k, v in self.memory_analysis().items()]
+        # each operation: kind, op, shapes (a collective's output and its
+        # group's size; a global product's DTensors and their placements),
+        # how often it ran and its FLOPs or bytes in all
+        lines += [f"op {kind} {op} {shapes} n={n} total={amount!r}"
+                  for (kind, op, shapes), (n, amount)
+                  in sorted(self._tally.ops.items())]
         return "\n".join(lines) + "\n"
 
 

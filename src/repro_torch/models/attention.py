@@ -93,8 +93,6 @@ def _attention_on_mesh(ctx, q, k, v, kw):
     k and v replicated over 'model' (as the projections leave them) and
     each rank takes the kv heads its query heads attend to; their
     gradient leaves the region summed over 'model'."""
-    from torch.distributed.tensor import Partial
-
     q, k, v = act.shard_batch(q), act.shard_batch(k), act.shard_batch(v)
     mesh = ctx["mesh"]
     dp = act.data_entry(ctx, q.shape[0])
@@ -108,8 +106,7 @@ def _attention_on_mesh(ctx, q, k, v, kw):
         o = attention(*(act.to_local(t, mesh, pl) for t in (q, k, v)), **kw)
         return act.from_local(o, mesh, pl)
     q_pl = act.region(ctx, 4, d0=dp, d2=heads)
-    summed = tuple(Partial() if n == heads else p
-                   for n, p in zip(mesh.axis_names, pl))
+    summed = act.summed_over(mesh, pl, heads)
     kl, vl = (act.to_local(t, mesh, pl, summed)[:, :, kv] for t in (k, v))
     o = attention(act.to_local(q, mesh, q_pl), kl, vl, **kw)
     return act.from_local(o, mesh, q_pl)

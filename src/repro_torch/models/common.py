@@ -244,12 +244,42 @@ def embed_init(key, vocab, d_model, dtype=torch.float32, *, device=None):
 
 
 def embed_lookup(tokens, table, scale_by_sqrt_dim=False):
-    x = table[tokens]
+    x = (_lookup_on_mesh(tokens, table)
+         if act.is_dtensor(table) and act.current() is not None
+         else table[tokens])
     if scale_by_sqrt_dim:
         # sqrt(d) rounded to x's dtype first, as the JAX package casts it
         s = torch.tensor(np.sqrt(table.shape[-1]), dtype=x.dtype)
         x = x * s.item()
     return x
+
+
+def _lookup_on_mesh(tokens, table):
+    """``table[tokens]`` of a DTensor table (V, d), a local region: each
+    rank gathers the rows of its slice of the vocab (the table's d_model
+    dim gathered whole) for its batch shard of the tokens, 0 for a token
+    outside the slice, and the rows are summed over 'model'.  The table's
+    gradient leaves the region summed over the data axes the tokens are
+    split on (each shard's tokens add their own rows).  DTensor's own
+    indexing puts an ``index_put`` of a ``Partial`` table gradient in the
+    backward, whose sharding some torch versions cannot propagate."""
+    ctx = act.current()
+    mesh = ctx["mesh"]
+    dp = act.data_entry(ctx, tokens.shape[0])
+    vocab = act.model_entry(ctx, table.shape[0])
+    rows = act.region(ctx, 1, d0=dp)      # the tokens' and the rows'
+    pl = act.region(ctx, 2, d0=vocab)
+    local = act.to_local(table, mesh, pl, act.summed_over(mesh, pl, dp))
+    tok = act.to_local(tokens, mesh, rows).long()
+    if vocab is None or mesh.shape[vocab] == 1:
+        return act.from_local(local[tok], mesh, rows)
+    width = local.shape[0]
+    rel = tok - mesh.coordinate()[vocab] * width
+    mine = (rel >= 0) & (rel < width)
+    x = local[torch.clamp(rel, 0, width - 1)]
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype))
+    x = act.from_local(x, mesh, act.summed_over(mesh, rows, vocab))
+    return x.redistribute(mesh.device_mesh, rows)
 
 
 def logits_from_embedding(x, table, softcap=None):
@@ -277,7 +307,7 @@ def _nll_on_mesh(logits, labels):
     slice of the vocab holds it (the others add 0): DTensor's sharded
     ``gather`` leaves a masked partial that it cannot reduce.  A whole
     vocab runs the plain ``_nll`` on each shard."""
-    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor import Shard
 
     ctx = act.current()
     mesh = ctx["mesh"]
@@ -300,9 +330,7 @@ def _nll_on_mesh(logits, labels):
     mine = (rel >= 0) & (rel < width)
     ll = torch.gather(local, -1, torch.clamp(rel, 0, width - 1)[..., None])
     ll = torch.where(mine, ll[..., 0], torch.zeros((), dtype=ll.dtype))
-    ll = act.from_local(ll, mesh, tuple(
-        Partial() if n == vocab else p for n, p in zip(mesh.axis_names,
-                                                       rows)))
+    ll = act.from_local(ll, mesh, act.summed_over(mesh, rows, vocab))
     return lse, ll.redistribute(mesh.device_mesh, rows)
 
 
@@ -329,8 +357,9 @@ def cross_entropy_streamed(x, table, labels, mask=None, softcap=None,
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so its
     float32 logits are recomputed in the backward pass and only one
     chunk's are ever live.  On a mesh each chunk's logits are anchored as
-    the reference anchors them (``shard_spec``: batch over the data axes,
-    vocab over 'model').
+    the reference anchors them (batch over the data axes, vocab over
+    'model'), pinned (``act.pin``: the sequence whole, the gradient placed
+    the same).
     """
     b, s, d = x.shape
     chunk = min(chunk, s)
@@ -341,7 +370,7 @@ def cross_entropy_streamed(x, table, labels, mask=None, softcap=None,
         logits = xs @ table.T.to(xs.dtype)
         if softcap is not None:
             logits = torch.tanh(logits / softcap) * softcap
-        logits = act.shard_spec(logits, d0="data", d2="model")
+        logits = act.pin(logits, d0="data", d2="model")
         lse, ll = _nll(logits.float(), ls)
         loss = (lse - ll) * ms
         return loss.sum(), ms.sum()

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import dense_init
 from repro_torch.parallel import act
+from repro_torch.parallel.sharding import placements_by_axis
 
 __all__ = ["init_moe", "moe_forward"]
 
@@ -193,7 +194,7 @@ def _trivial_mesh(xt, p, m, mesh, aux):
     """A mesh of one device: the local path on the (whole) local shards."""
     from torch.distributed.tensor import Replicate
 
-    rep = (Replicate(),) * len(mesh.axis_names)
+    rep = (Replicate(),) * mesh.device_mesh.ndim
     loc = lambda t: act.to_local(t, mesh, rep)
     w = {k: loc(p[k]) for k in ("router", "w_gate", "w_up", "w_down")}
     y, loss = _local_forward(loc(xt), w, m, aux)
@@ -214,7 +215,7 @@ def _ep_forward(xt, p, m, mesh, data_axes, model_axis, aux):
     summed over the axes it is replicated on (``Partial``), the tokens'
     summed over 'model'.
     """
-    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor import Partial, Shard
 
     names = tuple(mesh.axis_names)
     n_model = mesh.shape[model_axis]
@@ -226,10 +227,7 @@ def _ep_forward(xt, p, m, mesh, data_axes, model_axis, aux):
                           / m.n_experts)), 4)
 
     def pl(**dims):
-        out = [Replicate()] * len(names)
-        for axis, dim in dims.items():
-            out[names.index(axis)] = dim
-        return tuple(out)
+        return placements_by_axis(mesh, dims)
 
     tok = {a: Shard(0) for a in data_axes}
     x_pl = pl(**tok)

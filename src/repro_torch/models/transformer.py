@@ -19,10 +19,13 @@ decoder group.
 
 On a device mesh (``ParallelCtx(mesh=)``, set up by the step builders)
 parameters, caches and activations are DTensors placed by the rules of
-``parallel/sharding.py``; the blocks run on them as on tensors, with the
-reference's activation anchors (``shard_batch`` at the embeddings and the
-layer carry) and local regions where the reference uses ``shard_map``
-(the MoE's expert parallelism, ``_slstm_sharded``).  Int8 serving leaves
+``parallel/sharding.py``; the blocks run on them as on tensors.  Each
+block gathers its FSDP weights and pins its input, the residual stream
+and the norms' outputs (batch over the data axes, whole along 'model';
+``parallel/act.pin``), where the reference anchors the embeddings and the
+layer carry, and local regions stand where the reference uses
+``shard_map`` (the MoE's expert parallelism, ``_slstm_sharded``) and
+where DTensor's rules fall short (the embedding lookup).  Int8 serving leaves
 on a mesh are DTensors too: ``q`` placed as its weight, ``scale`` by the
 weight's out-channel dim, expanded shard by shard (``dequant_tree``).
 
@@ -153,7 +156,8 @@ def _ffn(x, p, cfg: ModelConfig, ctx: ParallelCtx, aux: bool = False):
     loss = torch.zeros((), dtype=torch.float32, device=x.device) \
         if aux else None
     if "norm2" in p:
-        h = apply_norm(x, p["norm2"], cfg.norm)
+        x = act.pin_batch(x)
+        h = act.pin_batch(apply_norm(x, p["norm2"], cfg.norm))
         if "moe" in p:
             out, loss = moe_lib.moe_forward(h, p["moe"], cfg, ctx.mesh,
                                             ctx.data_axes, ctx.model_axis,
@@ -173,7 +177,9 @@ def _block_forward(x, p, cfg: ModelConfig, kind: str, ctx: ParallelCtx, *,
     training loss) it writes nothing in place, so autograd can
     differentiate it, and returns the aux loss (0 without a MoE).
     """
-    h = apply_norm(x, p["norm1"], cfg.norm)
+    p = act.gather_weights(p)
+    x = act.pin_batch(x)
+    h = act.pin_batch(apply_norm(x, p["norm1"], cfg.norm))
     if kind in ("attn", "local"):
         window = cfg.window if kind == "local" else None
         clen = None if cache is None else _cache_len_for(cfg, kind,
@@ -202,7 +208,9 @@ def _block_forward(x, p, cfg: ModelConfig, kind: str, ctx: ParallelCtx, *,
 def _block_decode(x, p, cfg: ModelConfig, kind: str, ctx: ParallelCtx,
                   cache, index):
     """One-token block step; advances ``cache`` in place."""
-    h = apply_norm(x, p["norm1"], cfg.norm)
+    p = act.gather_weights(p)
+    x = act.pin_batch(x)
+    h = act.pin_batch(apply_norm(x, p["norm1"], cfg.norm))
     if kind in ("attn", "local"):
         window = cfg.window if kind == "local" else None
         out, _ = gqa.attn_decode(h, p["attn"], cfg, cache, index,
@@ -372,7 +380,6 @@ class LM:
         reference's ``_encdec_forward``)."""
         cfg = self.cfg
         for gp, cg, pattern in self._groups(params, caches):
-            x = act.shard_batch(x)  # anchor the layer carry
             for i, kind in enumerate(pattern):
                 x, _ = _block_forward(x, gp[f"b{i}"], cfg, kind, ctx,
                                       cache=cg[f"b{i}"], cache_len=cache_len)
@@ -386,7 +393,6 @@ class LM:
         does."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         gp = dequant_tree(gp, self.dtype)
-        x = act.shard_batch(x)  # anchor the layer carry
         for i, kind in enumerate(pattern):
             x, a = _block_forward(x, gp[f"b{i}"], self.cfg, kind, ctx)
             aux = aux + a
@@ -416,9 +422,11 @@ class LM:
     def _cross(self, x, gp, enc):
         """The enc-dec cross-attention after a group (its k/v from the
         encoder output, recomputed per call as the reference does)."""
-        h = apply_norm(x, gp["xnorm"], self.cfg.norm)
-        enc_kv = gqa.encode_kv(enc, gp["xattn"], self.cfg)
-        return x + gqa.cross_attn_forward(h, enc_kv, gp["xattn"], self.cfg)
+        x = act.pin_batch(x)
+        h = act.pin_batch(apply_norm(x, gp["xnorm"], self.cfg.norm))
+        xattn = act.gather_weights(gp["xattn"])
+        enc_kv = gqa.encode_kv(enc, xattn, self.cfg)
+        return x + gqa.cross_attn_forward(h, enc_kv, xattn, self.cfg)
 
     def _encode(self, params, frames, ctx=None):
         """Encoder stack over stub frame/patch embeddings (B, T, d)."""
@@ -427,14 +435,15 @@ class LM:
         x = frames.to(self.dtype) + dequant_tree(
             enc_p["pos_embed"], self.dtype)[:frames.shape[1]].to(self.dtype)
         for bp in _layers(enc_p["blocks"], cfg.encoder.n_layers):
-            bp = dequant_tree(bp, self.dtype)
-            h = apply_norm(x, bp["norm1"], cfg.norm)
+            bp = act.gather_weights(dequant_tree(bp, self.dtype))
+            x = act.pin_batch(x)
+            h = act.pin_batch(apply_norm(x, bp["norm1"], cfg.norm))
             out, _ = gqa.attn_forward(h, bp["attn"], cfg, causal=False,
                                       rope=False)
-            x = x + out
-            h = apply_norm(x, bp["norm2"], cfg.norm)
+            x = act.pin_batch(x + out)
+            h = act.pin_batch(apply_norm(x, bp["norm2"], cfg.norm))
             x = x + mlp_apply(h, bp["mlp"], cfg.mlp_act)
-        return apply_norm(x, enc_p["final_norm"], cfg.norm)
+        return apply_norm(act.pin_batch(x), enc_p["final_norm"], cfg.norm)
 
     # -- embeddings / logits --------------------------------------------------
     def _embed(self, params, tokens, extra_embeds=None):
@@ -444,15 +453,18 @@ class LM:
         x = embed_lookup(tokens, table, scale_by_sqrt_dim=scale)
         if extra_embeds is not None:
             x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
-        return act.shard_batch(x)
+        return x
 
     def _logits(self, params, x):
         cfg = self.cfg
-        x = apply_norm(x, params["final_norm"], cfg.norm)
+        x = act.pin_batch(apply_norm(act.pin_batch(x), params["final_norm"],
+                                     cfg.norm))
         if cfg.tie_embeddings:
             return logits_from_embedding(
-                x, dequant_tree(params["embed"], x.dtype), cfg.logit_softcap)
-        out = x @ dequant_tree(params["lm_head"], x.dtype).to(x.dtype)
+                x, act.gather_weights(dequant_tree(params["embed"], x.dtype)),
+                cfg.logit_softcap)
+        out = x @ act.gather_weights(
+            dequant_tree(params["lm_head"], x.dtype)).to(x.dtype)
         if cfg.logit_softcap:
             out = torch.tanh(out / cfg.logit_softcap) * cfg.logit_softcap
         return out
@@ -484,15 +496,17 @@ class LM:
             if extra is not None:
                 x = x[:, extra.shape[1]:]
             mask = batch.get("mask")
-            x = apply_norm(x, params["final_norm"], cfg.norm)
-            table = (params["embed"] if cfg.tie_embeddings
-                     else params["lm_head"].T)
+            x = act.pin_batch(apply_norm(act.pin_batch(x),
+                                         params["final_norm"], cfg.norm))
+            table = act.gather_weights(params["embed"] if cfg.tie_embeddings
+                                       else params["lm_head"].T)
             if x.shape[1] * cfg.vocab_size > (1 << 24):
                 # stream the vocab projection: never materialize (B, S, V)
                 loss = cross_entropy_streamed(x, table, labels, mask,
                                               softcap=cfg.logit_softcap)
             else:
-                logits = logits_from_embedding(x, table, cfg.logit_softcap)
+                logits = act.pin(logits_from_embedding(
+                    x, table, cfg.logit_softcap), d0="data", d2="model")
                 loss = cross_entropy(logits, labels, mask)
             return loss + aux
 
@@ -521,10 +535,14 @@ class LM:
 
     def _mesh_caches(self, batch, cache_len, mesh):
         """``init_caches`` on a mesh: each rank allocates only its shard
-        (on the ``meta`` device first for the global shapes)."""
+        (on the ``meta`` device first for the global shapes, out of sight
+        of any dispatch mode: a tally of the step's storages must not
+        count a tree that exists only for its shapes)."""
+        from torch.utils._python_dispatch import _disable_current_modes
+
         cfg = self.cfg
-        meta = LM(cfg, device="meta")
-        like = meta.init_caches(batch, cache_len)
+        with _disable_current_modes():
+            like = LM(cfg, device="meta").init_caches(batch, cache_len)
 
         def place(path, t):
             spec = cache_spec(path, tuple(t.shape), cfg, mesh)

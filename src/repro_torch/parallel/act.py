@@ -1,9 +1,10 @@
 """Activation sharding constraints via an ambient mesh context.
 
-Model code stays mesh-agnostic: it calls ``shard_batch(x, dim)`` at anchor
-points (attention inputs, the layer carry, embeddings, logits chunks) and
-the launch layer decides what that means by installing a context.  Without
-a context every helper is a no-op, so single-device runs are unchanged.
+Model code stays mesh-agnostic: it calls ``shard_batch(x, dim)`` and
+:func:`pin` at anchor points (attention inputs, each block's input and
+norms, the logits) and the launch layer decides what that means by
+installing a context.  Without a context every helper is a no-op, so
+single-device runs are unchanged.
 
 On a mesh the activations are DTensors, and a constraint is a
 ``redistribute`` of the named dims only: every other dim keeps the
@@ -13,6 +14,12 @@ that came from the weights).  Inside the context plain tensors (positions,
 masks, zeros) enter DTensor ops as replicated
 (``implicit_replication``), and ``keep_context`` carries the context into
 a checkpointed function's recompute in the backward pass.
+
+The model pins more than the reference anchors: each block gathers its
+FSDP weights (:func:`gather_weights`), and the residual stream, the norms'
+outputs and the logits are pinned with their gradients (:func:`pin`), so
+every product's split is the one XLA gives the reference, whatever torch
+version's DTensor plans it.
 
 :func:`to_local` / :func:`from_local` are the two ends of a local region,
 the port's ``shard_map``: each rank runs plain PyTorch on its shards, with
@@ -31,8 +38,9 @@ import functools
 import math
 
 __all__ = ["activation_mesh", "current", "data_entry", "from_local",
-           "is_dtensor", "keep_context", "model_entry", "region",
-           "shard_batch", "shard_spec", "to_local"]
+           "gather_weights", "is_dtensor", "keep_context", "model_entry",
+           "pin", "pin_batch", "region", "shard_batch", "summed_over",
+           "to_local"]
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar("act_mesh", default=None)
 
@@ -95,26 +103,27 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
-def _constrain(x, dim_axes: dict):
+def _constrain(x, mesh, dim_axes: dict):
     """Redistribute ``x`` so dim ``d`` is split over exactly the axes
-    ``dim_axes[d]``; the other mesh dims keep their placements unless they
-    split one of the named dims, which then becomes theirs alone."""
+    ``dim_axes[d]`` of ``mesh``; the other mesh dims keep their placements
+    unless they split one of the named dims, which then becomes theirs
+    alone."""
     from torch.distributed.tensor import Replicate, Shard
 
-    mesh = x.device_mesh
-    names = tuple(mesh.mesh_dim_names)
+    from repro_torch.parallel.sharding import mesh_dim_axes
+
+    dm = x.device_mesh
     pl = list(x.placements)
     for dim, axes in dim_axes.items():
+        dims = mesh_dim_axes(mesh, axes)
         for i, p in enumerate(pl):
-            if (isinstance(p, Shard) and p.dim == dim
-                    and names[i] not in axes):
+            if isinstance(p, Shard) and p.dim == dim and i not in dims:
                 pl[i] = Replicate()
-        for a in axes:     # a mesh dim of size 1 stays replicated
-            i = names.index(a)
-            pl[i] = Shard(dim) if mesh.size(i) > 1 else Replicate()
+        for i in dims:     # a mesh dim of size 1 stays replicated
+            pl[i] = Shard(dim) if dm.size(i) > 1 else Replicate()
     if tuple(pl) == tuple(x.placements):
         return x
-    return x.redistribute(x.device_mesh, pl)
+    return x.redistribute(dm, pl)
 
 
 def _fits(n: int, size: int) -> bool:
@@ -129,26 +138,60 @@ def shard_batch(x, dim: int = 0):
     n = math.prod(ctx["mesh"].shape[a] for a in ctx["data"])
     if not _fits(n, x.shape[dim]):
         return x
-    return _constrain(x, {dim: ctx["data"]})
+    return _constrain(x, ctx["mesh"], {dim: ctx["data"]})
 
 
-def shard_spec(x, **dim_axes):
-    """Constrain named dims: shard_spec(x, d0='data', d2='model')."""
+def pin(x, **dim_axes):
+    """``x`` with the named dims split as named (``pin(x, d0="data",
+    d2="model")``, where they divide), whole along every other mesh dim,
+    and its gradient placed the same on the way back: a region that
+    computes nothing.  The reference's anchors leave the other dims
+    unconstrained and XLA splits the products that follow by rows; given
+    that freedom DTensor's propagation picks a split by a cost model that
+    differs between torch versions.  Pinned inputs and gradients leave
+    each product one strategy that moves nothing."""
     ctx = _CTX.get()
     if ctx is None or not is_dtensor(x):
         return x
-    mesh = ctx["mesh"]
-    want = {}
-    for key, kind in dim_axes.items():
-        dim = int(key[1:])
-        if dim >= x.ndim:
-            continue
-        axes = ctx["data"] if kind == "data" else (
-            (ctx["model"],) if kind == "model" else ())
-        if axes and _fits(math.prod(mesh.shape[a] for a in axes),
-                          x.shape[dim]):
-            want[dim] = axes
-    return _constrain(x, want) if want else x
+    entry = {"data": data_entry, "model": model_entry}
+    dims = {key: entry[kind](ctx, x.shape[int(key[1:])])
+            for key, kind in dim_axes.items() if int(key[1:]) < x.ndim}
+    pl = region(ctx, x.ndim, **dims)
+    return from_local(to_local(x, ctx["mesh"], pl, pl), ctx["mesh"], pl)
+
+
+def pin_batch(x):
+    """:func:`pin` of the batch dim (0) over the data axes."""
+    return pin(x, d0="data")
+
+
+def gather_weights(tree):
+    """Every DTensor leaf of ``tree`` (nested dicts) with its splits over
+    the data axes gathered (ZeRO-3's gather before use, as XLA gathers an
+    FSDP weight for its products), under an installed context; the
+    gradient is reduce-scattered back to the weight's split.  With rows
+    split over the data axes and weights whole along them, a product has
+    one strategy that moves nothing (:func:`pin`)."""
+    ctx = _CTX.get()
+    if ctx is None:
+        return tree
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.parallel.sharding import mesh_dim_axes
+
+    dims = mesh_dim_axes(ctx["mesh"], ctx["data"])
+
+    def one(w):
+        if isinstance(w, dict):
+            return {k: one(v) for k, v in w.items()}
+        if not is_dtensor(w):
+            return w
+        pl = tuple(Replicate() if i in dims and isinstance(p, Shard) else p
+                   for i, p in enumerate(w.placements))
+        return w if pl == tuple(w.placements) else w.redistribute(
+            w.device_mesh, pl)
+
+    return one(tree)
 
 
 def to_local(x, mesh, placements, grad_placements=None):
@@ -204,3 +247,17 @@ def region(ctx, ndim: int, **dims) -> tuple:
     for key, entry in dims.items():
         spec[int(key[1:])] = entry
     return placements(tuple(spec), ctx["mesh"])
+
+
+def summed_over(mesh, pl: tuple, entry) -> tuple:
+    """``pl`` with ``Partial()`` on the mesh dims of ``entry`` (an axis or
+    a tuple of axes; ``None`` changes nothing): how a gradient leaves a
+    region whose ranks along those axes each computed a term of it."""
+    from torch.distributed.tensor import Partial
+
+    from repro_torch.parallel.sharding import mesh_dim_axes
+
+    if entry is None:
+        return tuple(pl)
+    dims = mesh_dim_axes(mesh, entry)
+    return tuple(Partial() if i in dims else p for i, p in enumerate(pl))

@@ -42,6 +42,11 @@ MOE_SHAPE = (4, 16)
 SLSTM_ARCH = "xlstm-350m"
 SLSTM_SHAPE = (4, 8)
 PSUM_SHAPE = (2, 2, 5000)
+# the embedding lookup on the 2x2 and the 2x2x2: (vocab, d_model) table
+# with the vocab over 'model' and d_model over the data axes, (B, S)
+# tokens with the batch over the data axes
+EMB_TABLE = (64, 16)
+EMB_TOKENS = (4, 6)
 # prefill (B, S) + DECODE_STEPS teacher-forced decode steps on the 2x2:
 # MHA, GQA with a sequence-split cache, MoE, the recurrent blocks and MLA's
 # latent cache (the other registered archs share these code paths; the
@@ -64,6 +69,14 @@ TRAIN_CASES = {"stablelm-1.6b": ({"microbatches": 1}, False),
                "olmoe-1b-7b": ({"microbatches": 2, "expert_fsdp": False},
                                True)}
 TRAIN_SHAPE = (8, 16)
+# on the 2x2x2 (pod, data, model), whose 'pod' and 'data' are one DTensor
+# mesh dim in the port: prefill + decode steps of these archs and two
+# train steps of these, on the serve and train parts' inputs
+SERVE_222_ARCHS = ("olmoe-1b-7b",)
+TRAIN_222_ARCHS = ("stablelm-1.6b",)
+# ranks (host devices) each part's cases need: the 2x2x2 takes 8, the
+# others the first 4
+PART_WORLD = {"blocks": 8, "serve": 8, "int8": 4, "train": 8}
 # eps 1e-3 keeps each AdamW update near-linear in its gradient: at the
 # default 1e-8 a first step is lr * sign(g), so a gradient within float32
 # noise of 0 may move its weight by up to 2 lr in either package
@@ -164,6 +177,11 @@ def write_inputs(path: pathlib.Path, parts: tuple) -> None:
             (b, cfg.n_heads, cfg.head_dim), dtype=np.float32)
         out["psum|x"] = (3 * rng.standard_normal(PSUM_SHAPE)).astype(
             np.float32)
+        out["emb|table"] = rng.standard_normal(EMB_TABLE, dtype=np.float32)
+        out["emb|tokens"] = rng.integers(0, EMB_TABLE[0],
+                                         EMB_TOKENS).astype(np.int32)
+        out["emb|cy"] = rng.standard_normal(EMB_TOKENS + EMB_TABLE[1:],
+                                            dtype=np.float32)
     if "serve" in parts or "int8" in parts:
         for arch in SERVE_ARCHS:
             cfg = cfg_of(tcfg, arch)
@@ -195,7 +213,7 @@ def run_both(workdir: pathlib.Path, parts: tuple, timeout: float):
     side, and return (inputs, reference, port) as loaded ``.npz``."""
     inputs = workdir / "inputs.npz"
     write_inputs(inputs, parts)
-    n = 8 if "blocks" in parts else 4
+    n = max(PART_WORLD[p] for p in parts)
     # one thread per process: the two run beside the suite's other workers
     env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu",
                XLA_FLAGS=f"--xla_force_host_platform_device_count={n} "

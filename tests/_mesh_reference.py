@@ -3,7 +3,7 @@
     python tests/_mesh_reference.py INPUTS.npz OUT.npz PARTS
 
 Runs on host devices (``XLA_FLAGS=--xla_force_host_platform_device_count
-=N``, set by the caller: 8 for the 2x2x2 of the "blocks" part, else 4)
+=N``, set by the caller: 8 where a part has a 2x2x2 case, else 4)
 with meshes built as
 ``Mesh(np.array(devices).reshape(shape), names)``: jax 0.9's
 ``jax.make_mesh`` makes ``Explicit`` axes, on which the reference's train
@@ -126,6 +126,31 @@ def slstm(inp, out):
     store(out, "slstm|gp", gp)
 
 
+def embed(inp, out):
+    """``embed_lookup`` (``jnp.take``) and its table gradient under
+    ``jax.jit`` on the 2x2 and the 2x2x2, the table placed by the rules
+    (vocab over 'model', d_model over the data axes), the tokens' batch
+    over the data axes."""
+    from repro.models.common import embed_lookup
+    from repro.parallel.sharding import batch_sharding, resolve_axes
+
+    cy = jnp.asarray(inp["emb|cy"])
+    for key in ("22", "222"):
+        mesh = mesh_of(key)
+        table = jax.device_put(jnp.asarray(inp["emb|table"]), NamedSharding(
+            mesh, resolve_axes(("vocab", "embed"), mc.EMB_TABLE, mesh)))
+        toks = jax.device_put(jnp.asarray(inp["emb|tokens"]),
+                              batch_sharding(mesh, 2))
+
+        def f(table):
+            x = embed_lookup(toks, table)
+            return jnp.sum(x * cy), x
+
+        (_, x), g = jax.jit(jax.value_and_grad(f, has_aux=True))(table)
+        out[f"emb|{key}|x"], out[f"emb|{key}|g"] = np.asarray(x), \
+            np.asarray(g)
+
+
 def psum(inp, out):
     mesh = mesh_of("22")
     f = jax.shard_map(lambda x: compressed_psum(x, "model"), mesh=mesh,
@@ -143,9 +168,11 @@ def psum(inp, out):
     out["psum|err_jit"] = np.asarray(err)
 
 
-def serve(inp, out):
-    mesh = mesh_of("22")
-    for arch in mc.SERVE_ARCHS:
+def serve(inp, out, key="22"):
+    mesh = mesh_of(key)
+    archs = mc.SERVE_ARCHS if key == "22" else mc.SERVE_222_ARCHS
+    tag = "serve" if key == "22" else f"serve{key}"
+    for arch in archs:
         cfg = mc.cfg_of(jcfg, arch)
         lm = LM(cfg)
         params = jax.device_put(
@@ -160,11 +187,11 @@ def serve(inp, out):
         prefill = jax.jit(make_prefill_step(lm, mesh, mc.CACHE_LEN))
         decode = jax.jit(make_decode_step(lm, mesh))
         logits, caches = prefill(params, batch)
-        out[f"serve|{arch}|prefill"] = np.asarray(logits)
+        out[f"{tag}|{arch}|prefill"] = np.asarray(logits)
         for i in range(mc.DECODE_STEPS):
             tok = jnp.asarray(toks[:, s + i:s + i + 1])
             logits, caches = decode(params, caches, tok)
-            out[f"serve|{arch}|decode{i}"] = np.asarray(logits)
+            out[f"{tag}|{arch}|decode{i}"] = np.asarray(logits)
 
 
 def int8(inp, out):
@@ -198,9 +225,12 @@ def int8(inp, out):
             out[f"int8|{arch}|decode{i}"] = np.asarray(logits)
 
 
-def train(inp, out):
-    mesh = mesh_of("22")
+def train(inp, out, key="22"):
+    mesh = mesh_of(key)
+    tag = "train" if key == "22" else f"train{key}"
     for arch, (over, zero) in mc.TRAIN_CASES.items():
+        if key != "22" and arch not in mc.TRAIN_222_ARCHS:
+            continue
         cfg = mc.cfg_of(jcfg, arch, **over)
         lm = LM(cfg)
         params = jax.device_put(np_tree(mc.sub(inp, f"train|{arch}|p")),
@@ -214,10 +244,16 @@ def train(inp, out):
         for i in range(2):
             batch = {"tokens": jnp.asarray(inp[f"train|{arch}|tokens{i}"])}
             state, metrics = step(state, batch)
-            out[f"train|{arch}|loss{i}"] = np.asarray(metrics["loss"])
-            out[f"train|{arch}|grad_norm{i}"] = np.asarray(
+            out[f"{tag}|{arch}|loss{i}"] = np.asarray(metrics["loss"])
+            out[f"{tag}|{arch}|grad_norm{i}"] = np.asarray(
                 metrics["grad_norm"])
-        store(out, f"train|{arch}|params", state["params"])
+        store(out, f"{tag}|{arch}|params", state["params"])
+
+
+def on_222(fn):
+    def run(inp, out):
+        return fn(inp, out, key="222")
+    return run
 
 
 def cref8(inp, out):
@@ -242,8 +278,9 @@ def cref8(inp, out):
     out["cref8|error"] = np.array(msg[:400])
 
 
-PARTS = {"blocks": (placements, moe, slstm, psum), "serve": (serve, cref8),
-         "int8": (int8,), "train": (train,)}
+PARTS = {"blocks": (placements, moe, slstm, embed, psum),
+         "serve": (serve, on_222(serve), cref8), "int8": (int8,),
+         "train": (train, on_222(train))}
 
 
 def main():

@@ -3,9 +3,10 @@
     python tests/_mesh_world.py INPUTS.npz OUT.npz PARTS
 
 Spawns CPU ranks (one intra-op thread each) that meet through a
-``FileStore`` in the working directory (no network, no fixed port): 8 for
-the "blocks" part, whose 2x2x2 mesh needs them (its first four ranks also
-form the 2x2 and 4x1 meshes the other cases need, as sub-meshes), else 4.
+``FileStore`` in the working directory (no network, no fixed port): 8
+where a part has a case on the 2x2x2 mesh (its first four ranks also
+form the 2x2 and 4x1 meshes the other cases need, as sub-meshes), else 4
+(``_mesh_cases.PART_WORLD``).
 Each rank writes what it owns; rank 0 merges the files into OUT.npz.
 """
 
@@ -53,7 +54,7 @@ def placements(ctx, inp, out):
                 continue
             params = lm_params_from_numpy(tree, cfg, device="cpu",
                                           mesh=mesh)
-            c = mc.coord_key(mesh.device_mesh.get_coordinate())
+            c = mc.coord_key(mesh.coordinate().values())
             for name, leaf in mc.flatten(params).items():
                 out[f"shard|{arch}|{key}|{name}|{c}"] = (
                     leaf.to_local().numpy())
@@ -127,6 +128,38 @@ def slstm(ctx, inp, out):
         out[f"slstm|gp|{name}"] = full(g)
 
 
+def embed(ctx, inp, out):
+    """``embed_lookup`` on a DTensor table (the local region: each rank's
+    vocab slice, rows summed over 'model') and its table gradient, on
+    the 2x2 and the 2x2x2."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models.common import embed_lookup
+    from repro_torch.parallel.act import activation_mesh
+    from repro_torch.parallel.sharding import (batch_sharding,
+                                               data_axis_names, placements,
+                                               resolve_axes)
+
+    cy = t(inp["emb|cy"])
+    for key in ("22", "222"):
+        mesh = ctx["meshes"].get(key)
+        if mesh is None:
+            continue
+        table = distribute_tensor(
+            t(inp["emb|table"]), mesh.device_mesh,
+            placements(resolve_axes(("vocab", "embed"), mc.EMB_TABLE, mesh),
+                       mesh), src_data_rank=None)
+        table.requires_grad_()
+        toks = distribute_tensor(t(inp["emb|tokens"], torch.int64),
+                                 mesh.device_mesh,
+                                 batch_sharding(mesh, 2).placements,
+                                 src_data_rank=None)
+        with activation_mesh(mesh, data_axis_names(mesh)):
+            x = embed_lookup(toks, table)
+            (g,) = torch.autograd.grad((x * cy).sum(), [table])
+        out[f"emb|{key}|x"], out[f"emb|{key}|g"] = full(x), full(g)
+
+
 def psum(ctx, inp, out):
     from repro_torch.optim.compression import compressed_psum
 
@@ -168,14 +201,16 @@ def ckpt(ctx, inp, out):
     dist.barrier(group=ctx["group4"])
 
 
-def serve(ctx, inp, out):
+def serve(ctx, inp, out, key="22"):
     import repro_torch.configs as tcfg
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.transformer import (LM, lm_param_shardings,
                                                 lm_params_from_numpy)
 
-    mesh = ctx["meshes"]["22"]
-    for arch in mc.SERVE_ARCHS:
+    mesh = ctx["meshes"][key]
+    archs = mc.SERVE_ARCHS if key == "22" else mc.SERVE_222_ARCHS
+    tag = "serve" if key == "22" else f"serve{key}"
+    for arch in archs:
         cfg = mc.cfg_of(tcfg, arch)
         lm = LM(cfg, device="cpu")
         params = lm_params_from_numpy(
@@ -192,11 +227,11 @@ def serve(ctx, inp, out):
         prefill = make_prefill_step(lm, mesh, mc.CACHE_LEN)
         decode = make_decode_step(lm, mesh)
         logits, caches = prefill(params, batch)
-        out[f"serve|{arch}|prefill"] = full(logits)
+        out[f"{tag}|{arch}|prefill"] = full(logits)
         for i in range(mc.DECODE_STEPS):
             logits, caches = decode(params, caches,
                                     t(toks[:, s + i:s + i + 1]))
-            out[f"serve|{arch}|decode{i}"] = full(logits)
+            out[f"{tag}|{arch}|decode{i}"] = full(logits)
 
 
 def int8(ctx, inp, out):
@@ -226,15 +261,18 @@ def int8(ctx, inp, out):
             out[f"int8|{arch}|decode{i}"] = full(logits)
 
 
-def train(ctx, inp, out):
+def train(ctx, inp, out, key="22"):
     import repro_torch.configs as tcfg
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.transformer import (LM, lm_param_shardings,
                                                 train_state_from_numpy)
     from repro_torch.optim import adamw
 
-    mesh = ctx["meshes"]["22"]
+    mesh = ctx["meshes"][key]
+    tag = "train" if key == "22" else f"train{key}"
     for arch, (over, zero) in mc.TRAIN_CASES.items():
+        if key != "22" and arch not in mc.TRAIN_222_ARCHS:
+            continue
         cfg = mc.cfg_of(tcfg, arch, **over)
         lm = LM(cfg, device="cpu")
         params = mc.unflatten(mc.sub(inp, f"train|{arch}|p"))
@@ -251,23 +289,28 @@ def train(ctx, inp, out):
             batch = {"tokens": t(inp[f"train|{arch}|tokens{i}"]
                                  .astype(np.int64))}
             state, metrics = step(state, batch)
-            out[f"train|{arch}|loss{i}"] = full(metrics["loss"])
-            out[f"train|{arch}|grad_norm{i}"] = full(metrics["grad_norm"])
-        store(out, f"train|{arch}|params", state["params"])
+            out[f"{tag}|{arch}|loss{i}"] = full(metrics["loss"])
+            out[f"{tag}|{arch}|grad_norm{i}"] = full(metrics["grad_norm"])
+        store(out, f"{tag}|{arch}|params", state["params"])
+
+
+def on_222(fn):
+    def run(ctx, inp, out):
+        return fn(ctx, inp, out, key="222")
+    return run
 
 
 # (part, case, the world it runs in: 8 ranks or the first 4)
-PARTS = {"blocks": ((placements, 8), (moe, 4), (slstm, 4), (psum, 4),
-                    (ckpt, 4)),
-         "serve": ((serve, 4),), "int8": ((int8, 4),),
-         "train": ((train, 4),)}
+PARTS = {"blocks": ((placements, 8), (moe, 4), (slstm, 4), (embed, 8),
+                    (psum, 4), (ckpt, 4)),
+         "serve": ((serve, 4), (on_222(serve), 8)), "int8": ((int8, 4),),
+         "train": ((train, 4), (on_222(train), 8))}
 
 
 def rank_main(rank, world, inputs, parts, workdir):
     import torch
     import torch.distributed as dist
-    from repro_torch.launch.mesh import LMMesh
-    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.launch.mesh import _lm_mesh
 
     torch.set_num_threads(1)
     store = dist.FileStore(str(workdir / "store"), world)
@@ -277,15 +320,15 @@ def rank_main(rank, world, inputs, parts, workdir):
     group4 = dist.new_group(list(range(4)))
     meshes = {}
     if world == 8:
-        meshes["222"] = LMMesh(DeviceMesh(
-            "cpu", np.arange(8).reshape(2, 2, 2),
-            mesh_dim_names=("pod", "data", "model")))
+        meshes["222"] = _lm_mesh("cpu", (2, 2, 2),
+                                 ("pod", "data", "model"),
+                                 np.arange(8).reshape(2, 2, 2))
     for key in ("22", "41"):
         shape, names = mc.MESHES[key]
-        dm = DeviceMesh("cpu", np.arange(4).reshape(shape),
-                        mesh_dim_names=names)
+        mesh = _lm_mesh("cpu", shape, names,
+                        np.arange(4).reshape(shape))
         if rank < 4:
-            meshes[key] = LMMesh(dm)
+            meshes[key] = mesh
     ctx = {"meshes": meshes, "group4": group4}
     out = {}
     for part in parts:
@@ -313,7 +356,7 @@ def main():
     workdir.mkdir(exist_ok=True)
     (workdir / "store").unlink(missing_ok=True)    # a fresh rendezvous
     parts = sys.argv[3].split(",")
-    world = 8 if "blocks" in parts else 4
+    world = max(mc.PART_WORLD[p] for p in parts)
     mp.spawn(rank_main, args=(world, inputs, parts, workdir), nprocs=world)
     (workdir / "merged.npz").rename(out)
 

@@ -14,6 +14,9 @@ time limit of their own, and the cases below compare their files.
   the reference's mesh run (not ``mesh=None``, from which it differs).
 - ``_slstm_sharded`` and its gradients (the recurrent weights' summed over
   the data shards once per call).
+- The embedding lookup as a local region (each rank's vocab slice,
+  rows summed over 'model') against ``jnp.take`` on the 2x2 and the
+  2x2x2: the rows bit for bit, the table's gradient within ``GRAD_TOL``.
 - ``compressed_psum`` over 'model': the error bit for bit, the total to
   float32 summation order.
 - ``restore(shardings=)``: a state written under the 2x2 and read under
@@ -114,6 +117,14 @@ def test_slstm_recurrent_weight_gradients_match_reference(runs, leaf):
     _, ref, port = runs
     assert rel(port[f"slstm|gp|{leaf}"], ref[f"slstm|gp|{leaf}"]) \
         <= GRAD_TOL
+
+
+@pytest.mark.parametrize("mesh", ["22", "222"])
+def test_embedding_lookup_matches_reference(runs, mesh):
+    _, ref, port = runs
+    np.testing.assert_array_equal(port[f"emb|{mesh}|x"],
+                                  ref[f"emb|{mesh}|x"])
+    assert rel(port[f"emb|{mesh}|g"], ref[f"emb|{mesh}|g"]) <= GRAD_TOL
 
 
 @pytest.mark.parametrize("d,m", [(0, 0), (0, 1), (1, 0), (1, 1)])

@@ -12,7 +12,10 @@ Five registered configs at ``reduced()`` size in float32 (MHA, GQA, MoE,
 the xLSTM blocks, MLA; ``_mesh_cases.SERVE_ARCHS``): the prefill's last
 logits and four teacher-forced decode steps' logits (mistral-nemo's one
 kv head holds its cache's sequence over 'model', so its decode reduces
-the softmax across ranks; deepseek's latent cache likewise).  ``FWD_TOL`` 1e-5 relative to the largest logit (the
+the softmax across ranks; deepseek's latent cache likewise).  The MoE
+arch's prefill and decode steps also on a 2x2x2 ``("pod", "data",
+"model")`` mesh (8 host devices, 8 ranks; in the port 'pod' and 'data'
+are one DTensor mesh dim of 4, and its experts run expert-parallel).  ``FWD_TOL`` 1e-5 relative to the largest logit (the
 reference's own mesh-vs-none gap is ~1.7e-6).
 
 Int8 frozen-weight serving on the same 2x2 (``_mesh_cases.INT8_ARCHS``:
@@ -62,6 +65,17 @@ def test_int8_serving_on_the_mesh_matches_reference(runs, arch, step):
     _, ref, port = runs
     want = ref[f"int8|{arch}|{step}"]
     got = port[f"int8|{arch}|{step}"]
+    assert got.shape == want.shape
+    assert rel(got, want) <= FWD_TOL
+
+
+@pytest.mark.parametrize("step", ["prefill"] + [
+    f"decode{i}" for i in range(mc.DECODE_STEPS)])
+@pytest.mark.parametrize("arch", mc.SERVE_222_ARCHS)
+def test_serving_on_the_3d_mesh_matches_reference(runs, arch, step):
+    _, ref, port = runs
+    want = ref[f"serve222|{arch}|{step}"]
+    got = port[f"serve222|{arch}|{step}"]
     assert got.shape == want.shape
     assert rel(got, want) <= FWD_TOL
 

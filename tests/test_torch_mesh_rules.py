@@ -170,24 +170,83 @@ def test_cache_placements_equal_reference(arch, mesh):
 
 
 # --- placements and meshes ---------------------------------------------------
+def _bounds(shape, placements, sizes, coord) -> list:
+    """Each tensor dim's [lo, hi) on the rank at ``coord`` of a mesh of
+    ``sizes``: every ``Shard(d)`` cuts dim d's current range into even
+    parts, in mesh order, the rank keeping its part (DTensor's split)."""
+    out = [[0, n] for n in shape]
+    for p, n, c in zip(placements, sizes, coord):
+        if hasattr(p, "dim"):
+            lo, hi = out[p.dim]
+            w = (hi - lo) // n
+            out[p.dim] = [lo + c * w, lo + (c + 1) * w]
+    return out
+
+
 def test_placements_follow_mesh_order():
+    """On 2 x 16 x 16 'pod' and 'data' are one DTensor mesh dim of 32,
+    pod outer: every rank's shard bounds of a spec are the ones the nested
+    placements over (pod, data, model) give, the reference's split."""
+    import itertools
+
     from torch.distributed.tensor import Replicate, Shard
 
     _, tm = meshes("2x16x16")
-    assert tsh.placements((("pod", "data"), "model"), tm) == (
-        Shard(0), Shard(0), Shard(1))
-    assert tsh.placements((None, "data"), tm) == (
-        Replicate(), Shard(1), Replicate())
-    assert tsh.placements((), tm) == (Replicate(),) * 3
+    assert tsh.mesh_dims(tm) == (("pod", "data"), ("model",))
+    assert tsh.mesh_dim_sizes(tm) == (32, 16)
+    shape = (64, 32, 64)
+    nested = {(("pod", "data"), "model"): (Shard(0), Shard(0), Shard(1)),
+              (None, ("pod", "data"), "model"): (Shard(1), Shard(1),
+                                                 Shard(2)),
+              ("model", None, ("pod", "data")): (Shard(2), Shard(2),
+                                                 Shard(0))}
+    for spec, want in nested.items():
+        got = tsh.placements(spec, tm)
+        assert len(got) == 2
+        for p, d, m in itertools.product(range(2), range(16), range(16)):
+            assert _bounds(shape, got, (32, 16), (p * 16 + d, m)) == \
+                _bounds(shape, want, (2, 16, 16), (p, d, m)), (spec, p, d, m)
+    assert tsh.placements((), tm) == (Replicate(),) * 2
+    # use_tp=False: the model axis joins the data axes
+    assert tsh.placements((("pod", "data", "model"),), tm) == (
+        Shard(0), Shard(0))
     with pytest.raises(ValueError, match="mesh order"):
         tsh.placements((("data", "pod"),), tm)
     with pytest.raises(ValueError, match="twice"):
         tsh.placements(("model", "model"), tm)
     assert tsh.NamedSharding(tm, ("model",)).placements == (
-        Replicate(), Replicate(), Shard(0))
+        Replicate(), Shard(0))
     # a mesh dim of size 1 holds the whole dim: replicated
     one = AbstractMesh((1, 2), ("data", "model"))
     assert tsh.placements(("data", "model"), one) == (Replicate(), Shard(1))
+    # a 2-D mesh keeps one DTensor mesh dim per axis
+    _, t2 = meshes("16x16")
+    assert tsh.placements(("data", "model"), t2) == (Shard(0), Shard(1))
+
+
+@pytest.mark.parametrize("entry", ["data", "pod", ("data", "model"),
+                                   ("pod", "model")])
+def test_pod_or_data_alone_on_a_3d_mesh_raises(entry):
+    """The reference never splits over 'pod' or 'data' without the other
+    (``data_axis_names`` names both); on the port's DTensor mesh they are
+    one dim, so such a spec entry raises."""
+    _, tm = meshes("2x16x16")
+    with pytest.raises(ValueError, match="without the rest"):
+        tsh.placements((entry,), tm)
+
+
+def test_placements_by_axis_merge_pod_and_data():
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    _, tm = meshes("2x16x16")
+    assert tsh.placements_by_axis(tm, {"pod": Shard(0), "data": Shard(0),
+                                       "model": Partial()}) == (
+        Shard(0), Partial())
+    assert tsh.placements_by_axis(tm, {}) == (Replicate(), Replicate())
+    with pytest.raises(ValueError, match="share one mesh dim"):
+        tsh.placements_by_axis(tm, {"data": Partial()})
+    with pytest.raises(ValueError, match="no mesh axis"):
+        tsh.placements_by_axis(tm, {"expert": Shard(0)})
 
 
 def test_abstract_mesh_has_names_and_sizes():

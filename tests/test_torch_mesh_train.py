@@ -7,7 +7,10 @@ builder on 4 host devices of a ``Mesh(np.array(devices).reshape(2, 2),
 limit of their own): stablelm, xlstm (its sLSTM under
 ``_slstm_sharded``) and olmoe (2 microbatches, EP-resident experts,
 ``expert_fsdp=False``, and the ZeRO ``grad_shardings`` the reference's
-``lower_cell`` passes).  Loss, grad norm and every new parameter.
+``lower_cell`` passes).  Loss, grad norm and every new parameter.  And
+stablelm's two steps on a 2x2x2 ``("pod", "data", "model")`` mesh (8
+host devices, 8 ranks; in the port 'pod' and 'data' are one DTensor mesh
+dim of 4), within the same tolerances.
 
 AdamW runs at ``eps`` 1e-3 (``_mesh_cases.STEP_CFG``): at the default 1e-8
 a first update is ``lr * sign(g)``, so a gradient within float32 noise of
@@ -58,3 +61,21 @@ def test_train_parameters_on_the_mesh_match_reference(runs, arch):
                                    atol=ADAM_TOL, err_msg=name)
 
 
+@pytest.mark.parametrize("what", ["loss0", "loss1", "grad_norm0",
+                                  "grad_norm1"])
+@pytest.mark.parametrize("arch", mc.TRAIN_222_ARCHS)
+def test_train_metrics_on_the_3d_mesh_match_reference(runs, arch, what):
+    _, ref, port = runs
+    assert rel(port[f"train222|{arch}|{what}"],
+               ref[f"train222|{arch}|{what}"]) <= FWD_TOL
+
+
+@pytest.mark.parametrize("arch", mc.TRAIN_222_ARCHS)
+def test_train_parameters_on_the_3d_mesh_match_reference(runs, arch):
+    _, ref, port = runs
+    want = mc.sub(ref, f"train222|{arch}|params")
+    got = mc.sub(port, f"train222|{arch}|params")
+    assert set(got) == set(want) and want
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], rtol=0,
+                                   atol=ADAM_TOL, err_msg=name)

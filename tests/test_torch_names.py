@@ -92,6 +92,11 @@ EXCEPTIONS = {
         "FusedReservoir", "block", "interpret"), _PALLAS),
     "kernels/reservoir_step/reservoir_step.py": dict.fromkeys(_params_of(
         "reservoir_step", "block_c", "block_r", "interpret"), _PALLAS),
+    "parallel/act.py": dict.fromkeys(
+        ["shard_spec", "shard_spec(x=)"],
+        "replaced by pin: the port's anchors name their dims to pin() / "
+        "pin_batch(), which place the gradient the same way back, and no "
+        "caller constrains dims without it"),
     "serve/api.py": dict.fromkeys(
         ["warn_deprecated", "warn_deprecated(message=)",
          "warn_deprecated(stacklevel=)"], _SHIM),

@@ -75,6 +75,54 @@ def rows(mesh) -> list:
         cell=f"{cfg.name} {sh.name}", collective="all-reduce over model",
         bytes=sh.global_batch // n_data * sh.seq_len * 4))
 
+    # the embedding lookup's region: the table's d_model gathered over the
+    # data axes, the rows summed over 'model', per microbatch
+    k = max(cfg.microbatches, 1)
+    w = BYTES[cfg.dtype]
+    rows_b = sh.global_batch // n_data // k * sh.seq_len * cfg.d_model * w
+    out.append(dict(
+        point="models/common._lookup_on_mesh: the table gathered",
+        cell=f"{cfg.name} {sh.name}",
+        collective="all-gather over data (forward), reduce-scatter "
+                   "(backward)",
+        bytes=int(cfg.vocab_size // n_model * cfg.d_model * w
+                  * (1 - 1 / n_data)) * k))
+    out.append(dict(
+        point="models/common._lookup_on_mesh: the rows summed over model",
+        cell=f"{cfg.name} {sh.name}", collective="all-reduce over model",
+        bytes=rows_b * k))
+
+    # each block's weights gathered over the data axes before use, in the
+    # forward and again in the recompute (remat "full"), the gradient
+    # reduce-scattered back once
+    sh_tree = lm_param_shardings(cfg, mesh)
+    p = _params(cfg)
+    specs = dict(tree_leaves_with_path(sh_tree["groups"]))
+    gathered = 0.0
+    for path, leaf in tree_leaves_with_path(p["groups"]):
+        spec = specs[path].spec
+        kept = tuple(e if e == "model" else None for e in spec)
+        gathered += leaf.numel() * leaf.element_size() * (
+            _local_fraction(kept, mesh) - _local_fraction(spec, mesh))
+    passes = 2 if cfg.remat != "none" else 1
+    out.append(dict(
+        point="parallel/act.gather_weights: each block's weights",
+        cell=f"{cfg.name} {sh.name}",
+        collective=f"all-gather over data ({passes} per microbatch), "
+                   "reduce-scatter (backward)",
+        bytes=int(gathered) * passes * k))
+
+    # the residual stream pinned whole over 'model': after the attention's
+    # and the MLP's row-split products (forward), after the attention's in
+    # the recompute, and the norms' output gradients (backward)
+    pins = 2 + (1 if cfg.remat != "none" else 0) + 2
+    out.append(dict(
+        point="parallel/act.pin: the residual stream and norm outputs",
+        cell=f"{cfg.name} {sh.name}",
+        collective=f"all-reduce over model ({pins} per block and "
+                   "microbatch)",
+        bytes=rows_b * pins * cfg.n_layers * k))
+
     # sLSTM: the mixer gathered whole per block call (and its gradient
     # reduce-scattered back), per microbatch
     cfg = tcfg.get_config("xlstm-350m")
