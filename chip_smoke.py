@@ -173,6 +173,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    collective bytes by kind (beside ``tools/mesh_bytes.py``'s) and the
    seconds per cell and of the seven.  No kernel of B1-B5 may launch
    (``launches_lm_dryrun``);
+15. ``examples`` (after ``dryrun``): every ``Run:`` line of the
+   docstrings of ``examples/*_torch.py`` (the twins of the reference's
+   example scripts, at their own full sizes) on the card, each through
+   its ``main(argv)`` in this process, so that the phase counts every
+   run's launches (``serve_observed_torch`` switches ``obs`` on and off,
+   and the phase puts this process's ``obs`` state back; the LM twins'
+   ``(1, 1)`` mesh runs over one NCCL group the phase opens), every run
+   with ``build/examples`` as its working directory and its full output
+   in ``build/examples/<n>_<script>.log``.  A run that raises or does
+   not end with ``OK`` fails the phase; each run's seconds and the
+   numbers it printed (NRMSE, SER, accuracy, steps/s, makespans, served
+   counts, loss first and last) are printed, and each ``train_lm_torch``
+   run's ms per step (median of its steps after the first) and tokens/s.
+   The specialized rollout (B2) and its fused readout must launch, B1 and
+   B3-B5 must not (``launches_examples``).  The B2 launches of
+   quickstart (2,999 steps at batch 1, dim 800 int8-CSD, states and the
+   fused readout), channel_equalization (6,000 steps, dim 600, fp32 and
+   int8-CSD) and timeseries_classification (batch 180 x 120 steps, dim
+   400 int8-CSD) are held against B2's plain twin on the same card
+   tensors: int8 states exactly, fp32 states within FP32_TOL, the fused
+   readout within READOUT_TOL (beside the largest sum |x_i w_i|, the size
+   a float sum's rounding grows with); then quickstart's served
+   predictions are timed (CUDA events) and each timed launch held
+   against the same twin;
 5. times each kernel per launch at the LARGE_1024 shape with CUDA events
    and the profiler, beside its plain twin, one PyTorch call computing the
    same product (and cuSPARSE for B4), and the least time the card could
@@ -194,6 +218,7 @@ import dataclasses
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -343,6 +368,13 @@ MESH_BYTES = {("stablelm-1.6b", "train_4k"): 33_107_148_800,
               ("mistral-nemo-12b", "decode_32k"): 5_324_800,
               ("olmoe-1b-7b", "train_4k"): 5_804_916_736}
 
+# the examples phase: a run's printed lines that hold these words are
+# echoed
+EXAMPLE_NUMBERS = ("NRMSE", "SER=", "accuracy", "steps/s", "makespan",
+                   "served", "rejected", "loss ", "parity", "p99",
+                   "set-up", "injected", "recovered", "spatial-model",
+                   "requests,")
+
 # Published H100 SXM peaks (NVIDIA data sheet) used for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -423,6 +455,7 @@ class Smoke:
         self.train_launches: dict = {}
         self.mesh_launches: dict = {}
         self.dryrun_launches: dict = {}
+        self.examples_launches: dict = {}
 
     def check(self, cond: bool, what: str) -> None:
         if not cond:
@@ -2003,26 +2036,18 @@ class Smoke:
         every kernel's launches over the phase (must be 0)."""
         torch = self.torch
         import torch.distributed as dist
-        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.mesh import make_host_mesh, one_rank_group
         counters = self._kernel_counters()
         for fn in counters.values():
             fn.launches = 0
         self._readout.fused_launches = 0
-        store = ROOT / "build" / "mesh_store"
-        store.parent.mkdir(exist_ok=True)
-        store.unlink(missing_ok=True)
-        dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
-                                rank=0, world_size=1)
-        try:
+        with one_rank_group(self.dev):
             mesh = make_host_mesh()
             print(f"mesh on {self.card}: {mesh.shape} over "
                   f"{mesh.size} rank, backend {dist.get_backend()}, "
                   f"torch {torch.__version__}")
             self._mesh_train(mesh)
             self._mesh_decode(mesh)
-        finally:
-            dist.destroy_process_group()
-            store.unlink(missing_ok=True)
         made = {k: fn.launches for k, fn in counters.items()}
         made["rollout_readout"] += self._readout.fused_launches
         self.mesh_launches = made
@@ -2159,6 +2184,222 @@ class Smoke:
         del params, runs
         torch.cuda.empty_cache()
 
+    # -- examples ------------------------------------------------------------
+    @staticmethod
+    def _example_runs() -> list:
+        """(script stem, argv) of every ``Run:`` line of the docstrings of
+        ``examples/*_torch.py``, in file order."""
+        import ast
+        import shlex
+        runs = []
+        for path in sorted((ROOT / "examples").glob("*_torch.py")):
+            doc = ast.get_docstring(ast.parse(path.read_text())) or ""
+            block = doc.split("Run:", 1)[1] if "Run:" in doc else ""
+            for line in block.splitlines():
+                words = shlex.split(line)
+                if not words:
+                    break
+                at = next(i for i, w in enumerate(words)
+                          if w.endswith("_torch.py"))
+                stem = pathlib.Path(words[at]).stem.removesuffix("_torch")
+                runs.append((stem, words[at + 1:]))
+        return runs
+
+    def examples(self):
+        """Every ``Run:`` line of the example twins on the card (module
+        docstring, 15.).  Counts every kernel's launches over the phase."""
+        from repro_torch import obs
+        from repro_torch.launch.mesh import one_rank_group
+        counters = self._kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        self._readout.fused_launches = 0
+        runs = self._example_runs()
+        scripts = sorted({stem for stem, _ in runs})
+        twins = sorted(p.stem.removesuffix("_torch") for p in
+                       (ROOT / "examples").glob("*_torch.py"))
+        self.check(scripts == twins and len(twins) == 10,
+                   f"examples: Run: lines name {scripts}, twins {twins}")
+        out = ROOT / "build" / "examples"
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        print(f"examples on {self.card}: {len(runs)} runs of "
+              f"{len(scripts)} scripts, logs in build/examples")
+        cwd, state = os.getcwd(), obs.active()
+        t0 = time.perf_counter()
+        os.chdir(out)
+        results = {}
+        try:
+            with one_rank_group(self.dev):     # the LM twins' (1, 1) mesh
+                for i, (stem, argv) in enumerate(runs):
+                    results.setdefault(stem, self._example(i, stem, argv))
+        finally:
+            os.chdir(cwd)
+            obs._ACTIVE = state        # serve_observed_torch disables obs
+        made = {k: fn.launches for k, fn in counters.items()}
+        fused = self._readout.fused_launches
+        made["rollout_readout"] += fused
+        self.examples_launches = made
+        print(f"examples: {len(runs)} runs in "
+              f"{time.perf_counter() - t0:.1f} s; launches of B1-B5 and "
+              f"the readout (fused {fused}): {made}")
+        self.check(made["specialized_rollout"] > 0 and fused > 0,
+                   f"examples: B2 {made['specialized_rollout']} launches, "
+                   f"{fused} fused readouts (want both > 0)")
+        idle = {k: made[k] for k in ("reservoir_rollout", "bitplane_gemv",
+                                     "bcsr_matmul", "reservoir_step")}
+        self.check(not any(idle.values()),
+                   f"examples launched a kernel off their path: {idle}")
+        t0 = time.perf_counter()
+        if results.get("quickstart"):
+            res = results["quickstart"]
+            u = res["u"][None]
+            plain = self._example_hold(
+                "quickstart", res["params"], u, res["states"][None],
+                res["preds"][None])
+            self._example_quickstart_ms(res["params"], u, plain)
+        for mode, res in (results.get("channel_equalization") or {}).items():
+            self._example_hold(f"channel_equalization {mode}",
+                               res["params"], res["u"][None],
+                               res["states"][None])
+        if results.get("timeseries_classification"):
+            res = results["timeseries_classification"]
+            self._example_hold("timeseries_classification", res["params"],
+                               res["u"], res["states"])
+        print(f"examples: B2's launches held against its twin in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    def _example_hold(self, tag, params, u, states, preds=None):
+        """An example's B2 launch from a zero state over ``u`` (B, T, I)
+        against B2's plain twin on the same card tensors: its ``states``
+        (B, T, R) and, where given, its fused readout's ``preds`` (B, T,
+        O).  Returns the twin's predictions (None without ``preds``)."""
+        torch = self.torch
+        from repro_torch.kernels.reservoir_rollout.specialized import (
+            SpecializedRollout, specialized_rollout_plain)
+        from repro_torch.serve.engine import engine_for
+        eng = engine_for(params)       # the engine the example ran on
+        op = getattr(eng, "_fused", None)
+        self.check(isinstance(op, SpecializedRollout),
+                   f"{tag}: served by {type(op).__name__} on the "
+                   f"{eng.backend} backend, not by B2")
+        if not isinstance(op, SpecializedRollout):
+            return None
+        kmode = "int8" if op.tables.int8 else "fp32"
+        u = u.to(torch.float32)
+        x0 = torch.zeros((u.shape[0], params.config.reservoir_dim),
+                         device=self.dev)
+        out = specialized_rollout_plain(
+            u.transpose(0, 1).contiguous(), op.tables, op.w_in, x0,
+            op.w_out if preds is not None else None, leak=op.leak,
+            smax=op.smax, recur_scale=op.recur_scale, readout_every=1,
+            want_states=True, want_preds=preds is not None)
+        ps, pp = out if preds is not None else (out, None)
+        ps = ps.transpose(0, 1)
+        ds = maxdiff(states, ps)
+        tol = 0.0 if kmode == "int8" else FP32_TOL
+        self.note_err("specialized_rollout", kmode, ds)
+        self.check(ds <= tol, f"{tag}: B2 states vs twin {ds:.3g} "
+                   f"(tolerance {tol:g})")
+        line = (f"  {tag}: B2 over {u.shape[1]} steps at batch "
+                f"{u.shape[0]} ({kmode}) vs twin: states {ds:.3g}")
+        if pp is not None:
+            pp = pp.transpose(0, 1)
+            scale = float((ps.abs() @ op.w_out.abs()).max())
+            dp = maxdiff(preds, pp)
+            self.note_err("rollout_readout", kmode, dp)
+            self.check(dp <= READOUT_TOL, f"{tag}: fused readout vs twin "
+                       f"{dp:.3g} (tolerance {READOUT_TOL:g})")
+            line += (f", fused readout {dp:.3g} (tolerance {READOUT_TOL:g};"
+                     f" largest sum |x_i w_i| {scale:.4g})")
+        print(line)
+        return pp
+
+    def _example_quickstart_ms(self, params, u, want):
+        """quickstart's served predictions again, out of the phase's
+        counts: one B2 launch of 2,999 steps at batch 1 with the readout
+        fused, by CUDA events (median of 5), each launch held against the
+        twin's predictions ``want`` within READOUT_TOL."""
+        torch = self.torch
+        from repro_torch.core.esn import run_readout
+        if want is None:
+            return
+        ev, ms, worst = self._events(2), [], 0.0
+        for _ in range(5):
+            ev[0].record()
+            got = run_readout(params, u[0])
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+            worst = max(worst, maxdiff(got, want[0]))
+        self.check(worst <= READOUT_TOL, f"quickstart's timed launches vs "
+                   f"twin {worst:.3g} (tolerance {READOUT_TOL:g})")
+        print(f"  quickstart: one B2 launch of {u.shape[1]} steps at batch "
+              f"1 (dim 800 int8-CSD, readout fused): "
+              f"{float(np.median(ms)):.3f} ms (median of 5; "
+              f"{[round(t, 3) for t in ms]}), "
+              f"{float(np.median(ms)) * 1e3 / u.shape[1]:.3f} us per step; "
+              f"each launch vs twin within {worst:.3g}")
+
+    def _example(self, i, stem, argv):
+        """One ``Run:`` line through the twin's ``main(argv)`` in this
+        process: returns what ``main`` returned (None if the run failed)."""
+        torch = self.torch
+        import importlib.util
+        import io
+        path = ROOT / "examples" / f"{stem}_torch.py"
+        out = pathlib.Path.cwd()
+        t0 = time.perf_counter()
+        spec = importlib.util.spec_from_file_location(
+            f"_example_{stem}_torch", path)
+        mod = importlib.util.module_from_spec(spec)
+        buf, err, failed, res = io.StringIO(), "", None, None
+        try:
+            with contextlib.redirect_stdout(buf):
+                spec.loader.exec_module(mod)
+                res = mod.main(argv)
+            torch.cuda.synchronize()
+        except (Exception, SystemExit):
+            err = traceback.format_exc()
+            failed = "raised"
+        text = buf.getvalue()
+        torch.cuda.empty_cache()
+        secs = time.perf_counter() - t0
+        (out / f"{i:02d}_{stem}.log").write_text(text + err)
+        last = (text.rstrip().splitlines() or [""])[-1]
+        ok = not failed and last.startswith("OK")
+        self.check(ok, f"example {stem}_torch.py {' '.join(argv)}: "
+                   f"{failed or 'last line ' + repr(last)}")
+        print(f"  [{i}] {stem}_torch.py {' '.join(argv)}: {secs:.1f} s, "
+              f"{'OK' if ok else 'FAILED'}")
+        for line in text.splitlines():
+            if any(w in line for w in EXAMPLE_NUMBERS):
+                print(f"      {line.strip()}")
+        if not ok:
+            print(err[-3000:])
+            return None
+        if stem == "train_lm":
+            self._example_tokens(res["step_s"], argv)
+        return res
+
+    @staticmethod
+    def _example_tokens(step_s, argv):
+        """ms per step and tokens per second of a ``train_lm_torch`` run:
+        the median of its steps' seconds after the first (host clock,
+        each step ending in the read of its loss)."""
+        shape = {"--batch": 8, "--seq": 128}
+        for k in shape:
+            if k in argv:
+                shape[k] = int(argv[argv.index(k) + 1])
+        secs = step_s[1:]
+        if secs:
+            med = float(np.median(secs))
+            print(f"      {shape['--batch']} x {shape['--seq']} tokens a "
+                  f"step: {med * 1e3:.2f} ms per step (median of "
+                  f"{len(secs)} steps after the first; "
+                  f"{min(secs) * 1e3:.2f}-{max(secs) * 1e3:.2f}), "
+                  f"{shape['--batch'] * shape['--seq'] / med:.0f} tokens/s")
+
     # -- dryrun ------------------------------------------------------------
     def dryrun(self):
         """The dry run held against the card: (a) the train phase's step,
@@ -2276,9 +2517,8 @@ class Smoke:
         parameters) prefilled and decoded without a mesh, then on the
         (1, 1) NCCL mesh, placed as ``lower_cell`` places int8 leaves."""
         torch = self.torch
-        import torch.distributed as dist
         from repro_torch.configs import get_config
-        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.mesh import make_host_mesh, one_rank_group
         from repro_torch.launch.steps import (make_decode_step,
                                               make_prefill_step)
         from repro_torch.models.quantize import (is_quantized_leaf,
@@ -2307,13 +2547,8 @@ class Smoke:
         b, s = DRYRUN_PROMPT
         prompt = torch.as_tensor(np.random.default_rng(11).integers(
             0, cfg.vocab_size, (b, s)), device=self.dev)
-        store = ROOT / "build" / "dryrun_store"
-        store.parent.mkdir(exist_ok=True)
-        store.unlink(missing_ok=True)
-        dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
-                                rank=0, world_size=1)
         runs = {}
-        try:
+        with one_rank_group(self.dev):
             mesh = make_host_mesh()
             for name, m in (("none", None), ("mesh", mesh)):
                 p = (q if m is None else
@@ -2341,9 +2576,6 @@ class Smoke:
                       f"prefill {b} x {s} {ms[0]:.2f} ms, decode ms per "
                       f"step {[round(x, 2) for x in ms[1:]]}")
                 del caches, logits, p
-        finally:
-            dist.destroy_process_group()
-            store.unlink(missing_ok=True)
         (t0, l0, ms0), (t1, l1, ms1) = runs["none"], runs["mesh"]
         tok_eq, log_eq = bool(torch.equal(t0, t1)), bool(torch.equal(l0, l1))
         med = {k: float(np.median(v[2][2:])) for k, v in runs.items()}
@@ -3469,6 +3701,7 @@ class Smoke:
                 launches_lm_train=self.train_launches.get(name, 0),
                 launches_lm_mesh=self.mesh_launches.get(name, 0),
                 launches_lm_dryrun=self.dryrun_launches.get(name, 0),
+                launches_examples=self.examples_launches.get(name, 0),
                 max_abs_err=max(v for v in e.values() if v is not None),
                 **{f"max_abs_err_{m}": v for m, v in e.items()},
                 **self.kernels[name]))
@@ -3505,7 +3738,7 @@ def main() -> int:
                   smoke.baseline_twins, smoke.fixed_matrix, smoke.times,
                   smoke.fixed_times, smoke.autotune, smoke.sharded,
                   smoke.serve_layer, smoke.lm_serve, smoke.lm_blocks,
-                  smoke.train, smoke.mesh, smoke.dryrun):
+                  smoke.train, smoke.mesh, smoke.dryrun, smoke.examples):
         t0 = time.perf_counter()
         print(f"== {phase.__name__}")
         try:

@@ -195,6 +195,31 @@ def fake_world(world_size: int):
         dist.destroy_process_group()
 
 
+@contextlib.contextmanager
+def one_rank_group(device=None):
+    """A process group of one rank for a mesh of this process alone, such
+    as :func:`make_host_mesh`'s with one card: NCCL for a CUDA ``device``
+    (the default), gloo for the CPU, over a file store in a temporary
+    directory, destroyed on exit.  A group that is open already is used
+    as it is and left open."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        yield
+        return
+    backend = "nccl" if resolve_device(device).type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            backend, store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+            world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> LMMesh:
     """The assignment's target: 16x16 = 256 chips/pod; 2 pods multi-pod.
     Raises unless the process group holds 256 (512) ranks (the dry run's

@@ -424,12 +424,13 @@ class ExecutionPlan:
             self, mode: str = "fp32",
             vmem_budget: int | None = DEFAULT_VMEM_BUDGET) -> str:
         """One-line regime report of the specialized rollout program: the
-        chosen weight-residency regime, weight bytes, and how the terms
-        split between folded-tile matmuls and shift-add reductions."""
+        chosen weight-residency regime, on-chip bytes (shared memory on the
+        card), and how the terms split between folded-tile matmuls and
+        shift-add reductions."""
         from repro_torch.plan.specialize import specialize_summary
         s = specialize_summary(self, mode, vmem_budget=vmem_budget)
         return (f"{s['mode']} {s['regime']} ({s['n_bands']} band(s), "
-                f"{s['resident_bytes']} B weights), "
+                f"{s['resident_bytes']} B on-chip), "
                 f"{s['n_matmul_terms']} matmul terms + "
                 f"{s['n_shiftadd_terms']} shift-add terms "
                 f"({s['shiftadd_digits']} digit adds)")

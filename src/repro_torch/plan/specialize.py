@@ -119,7 +119,7 @@ class RolloutProgram:
     def describe(self) -> str:
         dbl = " x2 (double-buffered)" if self.regime == "pipelined" else ""
         return (f"{self.mode} {self.regime}: {self.n_bands} band(s), "
-                f"{self.resident_bytes} B weights{dbl}, "
+                f"{self.resident_bytes} B weights on-chip{dbl}, "
                 f"{self.n_matmul_terms} matmul terms + "
                 f"{self.n_shiftadd_terms} shift-add terms "
                 f"({self.shiftadd_digits} digit adds, "

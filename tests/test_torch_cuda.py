@@ -1082,3 +1082,19 @@ def test_checkpoint_restore_on_card(cuda, tmp_path):
         if a.dtype == torch.bfloat16:
             a, b = a.view(torch.int16), b.view(torch.int16)
         assert torch.equal(a, b), name
+
+
+def test_cuda_mesh_refuses_gloo(cuda, tmp_path):
+    """No entry point of the port builds a CUDA device mesh over gloo (the
+    mesh whose ranks die in DTensor's first redistribute on a card,
+    ROADMAP C-port-9): ``make_mesh`` refuses it before DTensor sees it."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="a CUDA mesh runs on NCCL"):
+            make_mesh((1, 1), ("data", "model"), "cuda")
+    finally:
+        dist.destroy_process_group()

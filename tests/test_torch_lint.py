@@ -1,10 +1,12 @@
 """Import lint: the PyTorch port stands alone.
 
-Nothing under ``src/repro_torch/`` — and not ``chip_smoke.py`` — may import
-``jax`` or the JAX package (``repro`` / ``repro.*``), not even its
-numpy-only modules: importing any ``repro.core`` module pulls JAX in
-through the package ``__init__``.  Checked statically over every source
-file, and dynamically by importing the whole port in a fresh interpreter.
+Nothing under ``src/repro_torch/`` — and not ``chip_smoke.py``, the
+scripts under ``tools/`` or the port's examples (``examples/*_torch.py``)
+— may import ``jax`` or the JAX package (``repro`` / ``repro.*``), not
+even its numpy-only modules: importing any ``repro.core`` module pulls
+JAX in through the package ``__init__``.  Checked statically over every
+source file, and dynamically by importing the whole port in a fresh
+interpreter.  Every example script of the JAX package has its twin.
 """
 
 import ast
@@ -16,7 +18,12 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = ROOT / "examples"
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "tools").glob("*.py"))
+         + sorted(EXAMPLES.glob("*_torch.py")))
+REFERENCE_EXAMPLES = sorted(p for p in EXAMPLES.glob("*.py")
+                            if not p.stem.endswith("_torch"))
 
 
 def _forbidden(name: str) -> bool:
@@ -40,6 +47,13 @@ def _imports(path: pathlib.Path) -> list:
 def test_no_jax_or_reference_imports(path):
     bad = [n for n in _imports(path) if _forbidden(n)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("script", REFERENCE_EXAMPLES,
+                         ids=[p.name for p in REFERENCE_EXAMPLES])
+def test_every_reference_example_has_a_twin(script):
+    assert (EXAMPLES / f"{script.stem}_torch.py").is_file(), (
+        f"examples/{script.name} has no examples/{script.stem}_torch.py")
 
 
 def test_port_imports_without_jax():

@@ -157,6 +157,10 @@ DEPARTURES = {
             "for jax.ShapeDtypeStruct: an input of a shape, a torch dtype "
             "and a NamedSharding that allocates nothing"),
     },
+    "launch/mesh.py#group": dict.fromkeys(
+        ["one_rank_group", "one_rank_group(device=)"],
+        "for a JAX process's implicit single-process runtime: the process "
+        "group of one rank that make_host_mesh() needs with one card"),
     "launch/mesh.py#dryrun": dict.fromkeys(
         ["fake_world", "fake_world(world_size=)"],
         "for XLA's 512 host devices of the dry run: a fake process group "
