@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -487,8 +488,6 @@ def _launch_rollout(counted, u_seq, tables, w_in, x0, w_out=None, *,
     counted.launches += 1
     if want_preds:
         rollout_readout.fused_launches += 1
-    obs.event("kernel_launch", kernel=name, steps=t_steps, batch=b,
-              blocks=grid.n_blocks, resident=grid.resident)
     obs.inc("kernel_launches_total", kernel=name)
     return _pack(states, preds, final)
 
@@ -593,6 +592,12 @@ def _dispatch(counted, plain, u_seq, tables, w_in, x0, w_out=None, *,
               leak=1.0, smax=127, recur_scale=1.0, b_tile=16,
               readout_every=1, want_states=True, want_preds=False,
               want_final=False, final_out=None):
+    """The kernels layer's entry for one rollout, timed as the
+    ``rollout.launch`` span while tracing is on: on a card to the return
+    of the launch call (checks, grid, allocations, the enqueue), on a
+    CPU tensor the twin's whole call."""
+    tracer = obs.tracer()
+    t0 = 0.0 if tracer is None else time.perf_counter()
     if not (want_states or want_preds or want_final):
         raise ValueError("request at least one of states, preds, final")
     kw = dict(leak=leak, smax=smax, recur_scale=recur_scale,
@@ -600,9 +605,14 @@ def _dispatch(counted, plain, u_seq, tables, w_in, x0, w_out=None, *,
               want_preds=want_preds, want_final=want_final,
               final_out=final_out)
     if u_seq.device.type == "cpu":
-        return plain(u_seq, tables, w_in, x0, w_out, **kw)
-    return _launch_rollout(counted, u_seq, tables, w_in, x0, w_out,
-                           b_tile=b_tile, **kw)
+        out = plain(u_seq, tables, w_in, x0, w_out, **kw)
+    else:
+        out = _launch_rollout(counted, u_seq, tables, w_in, x0, w_out,
+                              b_tile=b_tile, **kw)
+    if tracer is not None:
+        tracer.record("rollout.launch", t0, time.perf_counter(),
+                      kernel=counted.__name__)
+    return out
 
 
 def reservoir_rollout_plain(u_seq, tables, w_in, x0, w_out=None, **kw):

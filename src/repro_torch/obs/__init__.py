@@ -10,10 +10,16 @@ which is a single global read plus a ``None`` check when
   mergeable fixed-bucket latency histograms (exact p50/p99/p999 from
   bucket counts), exported as Prometheus text or JSON;
 * :class:`~repro_torch.obs.trace.Tracer` — structured spans (request
-  lifecycle on the server clock, engine dispatch/sync on the wall clock,
-  plan stages) in a bounded flight recorder with JSONL export;
+  lifecycle on the server clock; the one-shot request path from
+  ``submit`` down to the rollout launch, and plan stages, on the wall
+  clock) in a bounded flight recorder with JSONL export; each span names
+  its parent;
 * :class:`~repro_torch.obs.events.EventLog` — named, timestamped kernel
-  build / launch / cache-miss events.
+  build / set-up / cache-miss events.
+
+Every timestamp of the wall clock, spans' and events' alike, is
+``time.perf_counter`` seconds: the clock a profiler's device trace is
+mapped onto, so a span and the device operations under it line up.
 
 Typical session::
 
@@ -26,6 +32,14 @@ Typical session::
     assert obs.events().count("kernel_build") <= 1   # built at most once
     obs.disable()                         # back to zero-cost no-ops
 
+A site that times a span only when tracing is on guards itself
+explicitly, so that off it costs one global read and no clock read::
+
+    tracer = obs.open_span("request.serve", t0, trace_id=tid)
+    ...                                   # spans recorded here are children
+    if tracer is not None:
+        tracer.close(finish)
+
 ``configure`` is idempotent-by-replacement: each call installs fresh
 sinks (a clean measurement window); ``disable`` detaches them.
 """
@@ -33,7 +47,6 @@ sinks (a clean measurement window); ``disable`` detaches them.
 from __future__ import annotations
 
 import dataclasses
-import time
 from contextlib import contextmanager
 from typing import Any
 
@@ -64,6 +77,7 @@ __all__ = [
     "metrics",
     "new_trace_id",
     "observe",
+    "open_span",
     "set_gauge",
     "span",
     "timed_span",
@@ -152,6 +166,19 @@ def span(name: str, start: float, end: float | None = None, *,
                          **attrs)
 
 
+def open_span(name: str, start: float, *,
+              trace_id: str | None = None) -> Tracer | None:
+    """Open a wall span that started at ``start`` (``time.perf_counter``)
+    on this thread's stack: the spans recorded until it closes are its
+    children and inherit its ``trace_id``.  Returns the tracer to
+    :meth:`~Tracer.close` it on, or ``None`` when tracing is off."""
+    st = _ACTIVE
+    if st is None or st.tracer is None:
+        return None
+    st.tracer.open(name, start, trace_id=trace_id)
+    return st.tracer
+
+
 def event(kind: str, ts: float | None = None, **fields: Any) -> None:
     st = _ACTIVE
     if st is not None and st.events is not None:
@@ -169,15 +196,12 @@ def new_trace_id() -> str | None:
 
 @contextmanager
 def timed_span(name: str, *, trace_id: str | None = None, **attrs: Any):
-    """Wall-clock span context manager; a plain passthrough when tracing
-    is off (the clock is not even read)."""
+    """Wall-clock span context manager, open while its block runs; a
+    plain passthrough when tracing is off (the clock is not even read).
+    Not for a hot path: there, guard on :func:`open_span` instead."""
     st = _ACTIVE
     if st is None or st.tracer is None:
         yield
         return
-    t0 = time.perf_counter()
-    try:
+    with st.tracer.span(name, trace_id=trace_id, **attrs):
         yield
-    finally:
-        st.tracer.record(name, t0, time.perf_counter(), trace_id=trace_id,
-                         clock="wall", **attrs)

@@ -5,14 +5,16 @@ once per process, the batcher owns one static pool shape, and
 ``engine_for`` / ``plan_for`` memoize their expensive steps.  When that
 property breaks — a cache key regresses, a build directory is wiped under
 a running server — the only symptom would be a mysterious latency spike.
-This log turns it into evidence: the instrumented build, launch and
+This log turns it into evidence: the instrumented build, set-up and
 cache-miss sites emit an :class:`Event` (``kind`` plus free-form fields).
+A launch is no event: ``kernel_launches_total`` counts launches, and the
+``rollout.launch`` span (:mod:`repro_torch.obs.trace`) times each one.
 
 Well-known kinds emitted by the instrumented sites:
 
 ====================  ======================================================
 ``kernel_build``      the rollout kernels compiled (or loaded) — once
-``kernel_launch``     one kernel rollout call (one launch of T steps)
+``rollout_setup``     an engine's first rollout of a new shape key
 ``engine_build``      a ReservoirEngine constructed
 ``engine_cache_miss`` ``engine_for`` built instead of reusing
 ``plan_lowering``     ``plan_for`` lowered a matrix (cache miss)
@@ -33,7 +35,8 @@ __all__ = ["Event", "EventLog"]
 
 @dataclasses.dataclass(frozen=True)
 class Event:
-    """One named, timestamped occurrence (``ts`` is epoch seconds)."""
+    """One named, timestamped occurrence (``ts`` is ``time.perf_counter``
+    seconds, the clock of the wall spans)."""
 
     ts: float
     kind: str
@@ -61,7 +64,7 @@ class EventLog:
 
     def record(self, kind: str, ts: float | None = None,
                **fields: Any) -> Event:
-        ev = Event(ts=time.time() if ts is None else float(ts),
+        ev = Event(ts=time.perf_counter() if ts is None else float(ts),
                    kind=kind, fields=fields)
         if len(self._events) == self.capacity:
             self.dropped += 1

@@ -347,15 +347,15 @@ class ReservoirEngine:
         # the recorded time is dispatch-side only (the device->host wait
         # lands at slot retirement), so the call is flagged in the stats
         # and throughput should be read from the scheduler's clock.
+        tracer = None if defer else obs.tracer()
+        t_sync = 0.0 if tracer is None else time.perf_counter()
         if not defer:
             self._sync()
-        seconds = time.perf_counter() - t0
-        self.stats.record_call(batch=batch, steps=steps, seconds=seconds,
+        now = time.perf_counter()
+        if tracer is not None:
+            tracer.record("engine.sync", t_sync, now)
+        self.stats.record_call(batch=batch, steps=steps, seconds=now - t0,
                                real_steps=real_steps, deferred=defer)
-        obs.span("engine.dispatch" if defer else "engine.rollout",
-                 t0, t0 + seconds, backend=self.backend, batch=batch,
-                 steps=steps, deferred=defer)
-        obs.observe("engine_rollout_seconds", seconds, backend=self.backend)
 
     def _resolve_want(self, want_states: bool | None) -> bool:
         want = (not self.has_readout) if want_states is None \
@@ -401,8 +401,10 @@ class ReservoirEngine:
         ``final_state`` is exactly x(T) — the chunk-resume carry.
         ``spec.deadline`` cannot be enforced here (no queue to wait in):
         a spec carrying one warns once per process and the result records
-        ``timings["deadline_ignored"] = True``.
+        ``timings["deadline_ignored"] = True``.  The request's time runs
+        from this call's entry to its return.
         """
+        t0 = time.perf_counter()
         if spec.model is not None:
             raise ValueError(
                 f"spec routes to model {spec.model!r} but this is a bare "
@@ -419,26 +421,37 @@ class ReservoirEngine:
                     "in); submit through AsyncReservoirServer to get "
                     "deadline enforcement", UserWarning, stacklevel=2)
         want = self._resolve_want(spec.want_states)
-        u, x0b, single = self._prepare(spec.inputs, spec.x0)
-        b, t, _ = u.shape
         trace_id = spec.trace_id or obs.new_trace_id()
-        t0 = time.perf_counter()
-        out, xf = self._dispatch(u, x0b, not want, True)
-        self._record(b, t, t0, None)
+        # the request's span tree: engine.prepare, rollout.launch (the
+        # kernels layer) and engine.sync join it as children
+        tracer = obs.open_span("request.serve", t0, trace_id=trace_id)
+        try:
+            t_prep = 0.0 if tracer is None else time.perf_counter()
+            u, x0b, single = self._prepare(spec.inputs, spec.x0)
+            if tracer is not None:
+                tracer.record("engine.prepare", t_prep, time.perf_counter())
+            b, t, _ = u.shape
+            out, xf = self._dispatch(u, x0b, not want, True)
+            self._record(b, t, t0, None)
+            if single:
+                out, xf = out[0], xf[0]
+            result = RolloutResult(preds=None if want else out,
+                                   states=out if want else None,
+                                   final_state=xf, timings={})
+        except BaseException:
+            if tracer is not None:
+                tracer.close(failed=True)
+            raise
         finish = time.perf_counter()
-        obs.span("request.serve", t0, finish, trace_id=trace_id,
-                 clock="wall", batch=b, steps=t)
+        if tracer is not None:
+            tracer.close(finish, batch=b, steps=t)
         obs.observe("request_latency_seconds", finish - t0, path="engine")
-        if single:
-            out, xf = out[0], xf[0]
-        timings = lifecycle_timings(arrival_time=t0, admit_time=t0,
-                                    finish_time=finish, seconds=finish - t0,
-                                    trace_id=trace_id)
+        result.timings.update(lifecycle_timings(
+            arrival_time=t0, admit_time=t0, finish_time=finish,
+            seconds=finish - t0, trace_id=trace_id))
         if deadline_ignored:
-            timings["deadline_ignored"] = True
-        return RolloutResult(preds=None if want else out,
-                             states=out if want else None,
-                             final_state=xf, timings=timings)
+            result.timings["deadline_ignored"] = True
+        return result
 
     def submit_many(self, specs: Sequence[SubmitSpec],
                     bucketer: PaddingBucketer | None = None) -> dict:

@@ -1,0 +1,204 @@
+"""The port's request-path spans on the CPU.
+
+One ``ReservoirEngine.submit`` records one span tree: ``request.serve``
+over ``engine.prepare``, ``rollout.launch`` (the kernels layer, here the
+cuda backend's plain twin) and ``engine.sync``, sharing the request's
+trace id, each naming its parent and nested in time.  ``run_segment``
+records the launch and the sync with no root.  Tracing off records
+nothing and reads the clock no more than the request's timings need;
+events and spans share ``time.perf_counter``; the span, histogram and
+event this path no longer emits stay gone.
+"""
+
+import pathlib
+import re
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import obs
+from repro_torch.core.esn import ESNConfig, init_esn
+from repro_torch.serve import ReservoirEngine, SubmitSpec
+
+CHILDREN = ("engine.prepare", "rollout.launch", "engine.sync")
+REMOVED_SPANS = ("engine.rollout", "engine.dispatch")
+PORT = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+
+
+@pytest.fixture(autouse=True)
+def _obs_off():
+    obs.disable()
+    yield
+    obs.disable()
+
+
+@pytest.fixture(scope="module")
+def engine():
+    params = init_esn(ESNConfig(reservoir_dim=64, element_sparsity=0.8,
+                                seed=3), device="cpu")
+    return ReservoirEngine(params, backend="cuda", device="cpu")
+
+
+def _inputs(t, seed=0):
+    return np.random.default_rng(seed).standard_normal((t, 1)).astype(
+        np.float32)
+
+
+def test_submit_records_one_span_tree(engine):
+    obs.configure()
+    results = [engine.submit(SubmitSpec(_inputs(t, t), want_states=True))
+               for t in (5, 9)]
+    spans = obs.tracer().spans()
+    ids = [r.timings["trace_id"] for r in results]
+    assert ids[0] and ids[1] and ids[0] != ids[1]
+    assert {s.trace_id for s in spans} == set(ids)
+    for res, tid in zip(results, ids):
+        tree = obs.tracer().spans(trace_id=tid)
+        assert [s.name for s in tree] == list(CHILDREN) + ["request.serve"]
+        root = tree[-1]
+        assert root.parent is None and root.clock == "wall"
+        assert root.attrs == {"batch": 1, "steps": res.states.shape[0]}
+        # the root is the request's own interval, and the histogram's
+        assert root.start == res.timings["arrival_time"]
+        assert root.end == res.timings["finish_time"]
+        assert root.duration_s == res.timings["seconds"]
+        last = root.start
+        for child in tree[:-1]:
+            assert child.parent == "request.serve" and child.trace_id == tid
+            assert last <= child.start <= child.end <= root.end
+            last = child.end
+        launch = tree[1]
+        assert launch.attrs == {"kernel": "specialized_rollout"}
+    hist = obs.metrics().histogram("request_latency_seconds")
+    assert hist.count(path="engine") == 2
+    assert hist.data(path="engine").sum == pytest.approx(
+        sum(r.timings["seconds"] for r in results))
+    assert len(obs.tracer().spans(name="rollout.launch")) == 2
+
+
+def test_run_segment_launch_has_no_trace_id(engine):
+    obs.configure()
+    x0 = torch.zeros((2, 64))
+    u = torch.as_tensor(np.stack([_inputs(4, 1), _inputs(4, 2)]))
+    engine.run_segment(u, x0, want_states=True)
+    spans = obs.tracer().spans()
+    assert [s.name for s in spans] == ["rollout.launch", "engine.sync"]
+    for s in spans:
+        assert s.trace_id is None and s.parent is None
+    # a deferred segment has no sync to time
+    obs.configure()
+    engine.run_segment(u, x0, want_states=True, defer_sync=True)
+    assert [s.name for s in obs.tracer().spans()] == ["rollout.launch"]
+
+
+def test_off_records_nothing_and_reads_the_clock_three_times(engine,
+                                                            monkeypatch):
+    reads = []
+    clock = time.perf_counter
+
+    def counted():
+        reads.append(1)
+        return clock()
+
+    monkeypatch.setattr(time, "perf_counter", counted)
+    res = engine.submit(SubmitSpec(_inputs(6), want_states=True))
+    # the request's entry, the rollout's end (its stats) and its return
+    assert len(reads) == 3 and res.timings.get("trace_id") is None
+    assert obs.tracer() is None and obs.events() is None
+    reads.clear()
+    obs.configure()
+    engine.submit(SubmitSpec(_inputs(6), want_states=True))
+    assert len(reads) > 3
+    monkeypatch.undo()
+    # a fresh tracer starts with no span, and nothing was left open
+    obs.configure()
+    assert len(obs.tracer()) == 0
+    engine.submit(SubmitSpec(_inputs(6), want_states=True))
+    assert obs.tracer().spans(name="request.serve")[0].parent is None
+
+
+def test_failed_submit_closes_its_root(engine):
+    obs.configure()
+    with pytest.raises(Exception):
+        engine.submit(SubmitSpec(np.zeros((2, 3, 4, 5), np.float32),
+                                 want_states=True))
+    *done, root = obs.tracer().spans()
+    assert root.name == "request.serve" and root.attrs == {"failed": True}
+    assert all(s.parent == "request.serve" for s in done)
+    engine.submit(SubmitSpec(_inputs(3), want_states=True))
+    roots = obs.tracer().spans(name="request.serve")
+    assert roots[1].parent is None and roots[1].trace_id != root.trace_id
+
+
+def test_open_spans_nest_and_inherit():
+    tr = obs.Tracer()
+    tr.open("outer", 1.0, trace_id="t-x")
+    tr.record("leaf", 1.5, 2.0)
+    tr.open("inner", 2.0)
+    tr.record("deep", 2.1, 2.2, trace_id="mine")
+    tr.close(3.0)
+    tr.close(4.0)
+    tr.record("after", 5.0, 6.0)
+    got = {s.name: (s.parent, s.trace_id) for s in tr.spans()}
+    assert got == {"leaf": ("outer", "t-x"), "deep": ("inner", "mine"),
+                   "inner": ("outer", "t-x"), "outer": (None, "t-x"),
+                   "after": (None, None)}
+    (inner,), (outer,) = tr.spans(name="inner"), tr.spans(name="outer")
+    assert (inner.start, inner.end, outer.start, outer.end) == (
+        2.0, 3.0, 1.0, 4.0)
+    with tr.span("block"):
+        tr.record("in_block", 7.0)
+    assert tr.spans(name="in_block")[0].parent == "block"
+    assert tr.spans(name="block")[0].as_dict()["parent"] is None
+    # the ring drops the oldest, and counts every drop over its life
+    ring = obs.Tracer(capacity=2)
+    for k in range(3):
+        ring.record(f"s{k}", float(k))
+    assert [s.name for s in ring.spans()] == ["s1", "s2"]
+    assert ring.dropped == 1
+    ring.clear()
+    ring.record("a", 0.0)
+    ring.record("b", 0.0)
+    assert ring.dropped == 1 and len(ring) == 2
+    ring.record("c", 0.0)
+    assert ring.dropped == 2
+
+
+def test_event_ts_is_on_the_span_clock():
+    obs.configure()
+    a = time.perf_counter()
+    obs.event("probe", value=1)
+    b = time.perf_counter()
+    (ev,) = obs.events().events("probe")
+    assert a <= ev.ts <= b and ev.as_dict()["ts"] == ev.ts
+
+
+def test_removed_names_are_not_emitted(engine):
+    obs.configure()
+    engine.submit(SubmitSpec(_inputs(5), want_states=True))
+    u = torch.as_tensor(_inputs(4)[None])
+    engine.run_segment(u, torch.zeros((1, 64)), want_states=True)
+    engine.run_segment(u, torch.zeros((1, 64)), want_states=True,
+                       defer_sync=True)
+    engine.rollout(_inputs(4))
+    names = {s.name for s in obs.tracer().spans()}
+    assert names == {"request.serve", *CHILDREN}
+    assert not names & set(REMOVED_SPANS)
+    assert obs.metrics().get("engine_rollout_seconds") is None
+    assert "engine_rollout_seconds" not in obs.metrics().prometheus_text()
+    assert obs.events().count("kernel_launch") == 0
+    assert not obs.events().events("kernel_launch")
+
+
+def test_no_writer_of_the_removed_names_is_left():
+    """The card-only launch path is out of the CPU's reach: no source
+    line of the port names what it no longer emits."""
+    gone = re.compile(r"""["'](engine\.rollout|engine\.dispatch|"""
+                      r"""engine_rollout_seconds|kernel_launch)["']""")
+    hits = [f"{p.relative_to(PORT)}:{i}"
+            for p in sorted(PORT.rglob("*.py"))
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if gone.search(line)]
+    assert hits == []
