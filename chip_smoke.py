@@ -232,7 +232,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # Tolerances.  int8 states are exact (integer recurrent products, the same
 # rounding sequence in kernel and twin); fp32 tile sums run in another
-# order (kernel: per-thread FMA chain; twin: a library matmul), and a
+# order (kernel: fixed partial sums over a block's warps and lanes, reduced
+# in a fixed tree; twin: a library matmul), and a
 # readout is a 1024-term float sum in another order in both modes.
 FP32_TOL = 1e-4
 READOUT_TOL = 1e-4
@@ -790,7 +791,9 @@ class Smoke:
 
     def baseline_twins(self):
         """B1 and B2 against their twins at phase 4's fp32 shape: dim 800
-        in 7 column blocks of 128, the last one ragged (96 columns)."""
+        in 7 column blocks of 128, the last one ragged (96 columns); a
+        4-row launch equal row by row to one-row launches; each kernel's
+        fp32 step at batch 16 and 1 (T = 64)."""
         torch = self.torch
         from repro_torch.kernels.reservoir_rollout.ops import FusedRollout
         from repro_torch.kernels.reservoir_rollout.reservoir_rollout import (
@@ -803,6 +806,9 @@ class Smoke:
         u = torch.randn((32, 4, cfg.input_dim), generator=gen).to(self.dev)
         x0 = (0.5 * torch.randn((4, cfg.reservoir_dim),
                                 generator=gen)).to(self.dev)
+        u64 = torch.randn((64, 16, cfg.input_dim), generator=gen).to(self.dev)
+        x64 = (0.5 * torch.randn((16, cfg.reservoir_dim),
+                                 generator=gen)).to(self.dev)
         kw = dict(want_states=True, want_preds=True, want_final=True)
         for name, cls, plain in (
                 ("specialized_rollout", SpecializedRollout,
@@ -824,6 +830,22 @@ class Smoke:
                        f"preds {dp:.3g}")
             print(f"  PAPER_BASELINE fp32 {name} vs twin: states {ds:.3g}, "
                   f"preds {dp:.3g}")
+            rows = [op(u[:, i:i + 1], x0[i:i + 1], **kw) for i in range(4)]
+            same = all(torch.equal(got, want)
+                       for i, (s1, p1, f1) in enumerate(rows)
+                       for got, want in ((s1, s[:, i:i + 1]),
+                                         (p1, p[:, i:i + 1]),
+                                         (f1, f[i:i + 1])))
+            self.check(same, f"{name} fp32: a 4-row launch equals its rows "
+                       "launched one at a time")
+            for b in (16, 1):
+                def call(b=b):
+                    return op(u64[:, :b], x64[:b], want_states=True)
+                dev_us = self._device_us(call, "rollout_kernel") / 64
+                ev_us = self.timed(call, 20) / 64 * 1e3
+                print(f"  PAPER_BASELINE fp32 {name} batch {b}, T=64: "
+                      f"{dev_us:.3f} us/step device time, {ev_us:.3f} "
+                      f"us/step by events on {self.card}")
 
     # -- phase 8 -------------------------------------------------------------
     def autotune(self):

@@ -55,9 +55,19 @@
 //     int32 product by its plane shift, and adds its sums into a shared
 //     int32 accumulator with integer atomics; SA digits scatter
 //     +-(xq << w) into the same accumulator.  int32 sums
-//     are exact in any order.  fp32 MM terms stay on CUDA cores (no TF32),
-//     one output per thread, terms in schedule order (ascending row
-//     block).
+//     are exact in any order.  fp32 MM terms stay on CUDA cores (IEEE
+//     fp32 FMAs, no TF32) and use every thread: the block's rows are
+//     flattened to q = term * bk + row (terms in schedule order) and each
+//     8-column group's rows split into W = max(1, 8 / groups) contiguous
+//     ranges, one warp each.  Lane (column l % 8, kq = l / 8) sums rows
+//     kq, kq + 4, ... of its range with one FMA chain per batch row, so a
+//     weight is read once for the whole batch tile; the 4 lanes of a
+//     column meet in a butterfly over kq, and the epilogue adds the W
+//     warps' sums in ascending order.  An output's sum order depends on
+//     cw, the block's term count and bk alone -- never on the batch, the
+//     tile, T or chunking -- so a row's state is the same bits at any
+//     batch.  At cw = 8 (dim 800 on 112 blocks): 32 partials of 28 FMAs
+//     instead of one chain of 896 on 8 threads.
 //   * Epilogue.  While the state copy is in flight each thread computes
 //     u(n) . W_in for its outputs and fetches their x(n-1) into shared
 //     memory.  u(n) . W_in in ascending input order, the accurate
@@ -84,6 +94,13 @@
 // latency, synchronisations).  The earlier cut (one launch per step, 32
 // blocks, tiles staged term by term through L2, scalar int32 MACs) took
 // 35.1 us (B2) and 264.9 us (B1) on the same card.
+// fp32 at dim 800 (7 x 7 blocks of 128, 112 blocks of 8 columns) pays
+// the same floor with a 3.6 KB state copy, plus 28 FMAs, two shuffle
+// levels and an 8-way shared-memory sum per output: 3.26 us (B2) and
+// 3.27 us (B1) a step at batch 1, 6.39 / 6.35 us at batch 16 (T = 64,
+// same card and clock).  The earlier branch, one chain of 896 FMAs per
+// output on bt * cw threads of a block, took 13.26-13.37 us at batch 1
+// and 14.52-14.56 us at batch 16.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -148,6 +165,62 @@ __device__ __forceinline__ void flush(int* acc_s, int cw, int g, int lane,
   atomicAdd(&acc_s[(gid + 8) * cw + col + 1], acc[3]);
 }
 
+// Warps per 8-column group in the fp32 product: each output sums 4 W
+// partials (bk is a multiple of 32, so every warp's range of a block's
+// n_mm * bk rows splits evenly over the 4 lanes of a column).
+__device__ __forceinline__ int f32_warps(int cw) {
+  return max(1, kWarps / (cw >> 3));
+}
+
+// fp32 MM terms of one batch tile, rows < NB of the staged state xs, into
+// red_s[(w * kRows + r) * cw + column] for the group's warp w.  Tiles are
+// (term, 8-column group, row, column) floats, so a warp reads 4 rows x 8
+// columns of 32 consecutive floats and 4 broadcast state words per row.
+// Rows bt .. NB - 1 of xs hold stale values whose sums nobody reads.
+template <int NB>
+__device__ __forceinline__ void product_f32(const float* xs, int ldxf,
+                                            const int2* mm,
+                                            const float* tiles, int n_mm,
+                                            int bk, int cw, float* red_s,
+                                            int warp, int lane) {
+  const int groups = cw >> 3;
+  const int wpg = f32_warps(cw);
+  const int span = n_mm * bk / wpg;      // rows q of one warp
+  const int j8 = lane & 7, kq = lane >> 3;
+  for (int unit = warp; unit < groups * wpg; unit += kWarps) {
+    const int g = unit / wpg;
+    const int w = unit - g * wpg;
+    float acc[NB];
+#pragma unroll
+    for (int r = 0; r < NB; ++r) acc[r] = 0.0f;
+    const int q_end = (w + 1) * span;
+    for (int q = w * span + kq; q < q_end;) {
+      const int m = q / bk;
+      const int seg_end = min(q_end, (m + 1) * bk);
+      // row q is state column mm[m].x * bk + q - m * bk and tile word
+      // ((m * groups + g) * bk + q - m * bk) * 8 + j8
+      const int xoff = (mm[m].x - m) * bk;
+      const float* wt = tiles + (size_t)(m * (groups - 1) + g) * bk * 8 + j8;
+#pragma unroll 4
+      for (; q < seg_end; q += 4) {
+        const float wv = wt[(size_t)q * 8];
+#pragma unroll
+        for (int r = 0; r < NB; ++r) {
+          acc[r] = fmaf(xs[r * ldxf + xoff + q], wv, acc[r]);
+        }
+      }
+    }
+    const int col = g * 8 + j8;
+#pragma unroll
+    for (int r = 0; r < NB; ++r) {
+      // kq's four partials: (kq0 + kq1) + (kq2 + kq3) on every lane
+      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 8);
+      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 16);
+      if ((r & 3) == kq) red_s[(w * kRows + r) * cw + col] = acc[r];
+    }
+  }
+}
+
 template <bool INT8>
 __device__ __forceinline__ void store_work(unsigned char* buf, int ldx, int b,
                                            int col, float v, float smax) {
@@ -164,9 +237,12 @@ __global__ void __launch_bounds__(kThreads)
 rollout_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* xs = smem + kBarBytes;                      // kRows x ldx
-  int* acc_s = reinterpret_cast<int*>(xs + kRows * p.ldx);   // kRows x cw
+  // int8: the int32 accumulator, kRows x cw; fp32: the warps' partial
+  // sums, f32_warps(cw) x kRows x cw
+  int* acc_s = reinterpret_cast<int*>(xs + kRows * p.ldx);
+  float* red_s = reinterpret_cast<float*>(acc_s);
   float* up_s = reinterpret_cast<float*>(
-      acc_s + (INT8 ? kRows * p.cw : 0));                    // kRows x cw
+      acc_s + kRows * p.cw * (INT8 ? 1 : f32_warps(p.cw)));  // kRows x cw
   float* prev_s = up_s + kRows * p.cw;                       // kRows x cw
   unsigned char* res =
       reinterpret_cast<unsigned char*>(prev_s + kRows * p.cw);  // the share
@@ -304,6 +380,23 @@ rollout_kernel(const Params p) {
                     (dg >> 28) ? -v : v);
         }
         __syncthreads();
+      } else {
+        const float* xf = reinterpret_cast<const float*>(xs);
+        const float* tf = reinterpret_cast<const float*>(tiles);
+        const int ldxf = p.ldx >> 2;
+        if (bt == 1) {
+          product_f32<1>(xf, ldxf, mm, tf, n_mm, p.bk, p.cw, red_s, warp, lane);
+        } else if (bt <= 2) {
+          product_f32<2>(xf, ldxf, mm, tf, n_mm, p.bk, p.cw, red_s, warp, lane);
+        } else if (bt <= 4) {
+          product_f32<4>(xf, ldxf, mm, tf, n_mm, p.bk, p.cw, red_s, warp, lane);
+        } else if (bt <= 8) {
+          product_f32<8>(xf, ldxf, mm, tf, n_mm, p.bk, p.cw, red_s, warp, lane);
+        } else {
+          product_f32<kRows>(xf, ldxf, mm, tf, n_mm, p.bk, p.cw, red_s, warp,
+                             lane);
+        }
+        __syncthreads();
       }
 
       for (int idx = tid; idx < bt * p.cw; idx += kThreads) {
@@ -319,17 +412,11 @@ rollout_kernel(const Params p) {
             pre = __fadd_rn(up, __fmul_rn(__int2float_rn(acc_s[r * p.cw + j]),
                                           p.recur_scale));
           } else {
-            // fp32 MM terms in schedule order, one output per thread
-            const float* xr = reinterpret_cast<const float*>(xs + r * p.ldx);
-            const float* tl = reinterpret_cast<const float*>(tiles) + j;
-            float acc = 0.0f;
-            for (int m = 0; m < n_mm; ++m) {
-              const float* xm = xr + mm[m].x * p.bk;
-              const float* tm = tl + (size_t)m * p.bk * p.cw;
-              float part = 0.0f;
-#pragma unroll 8
-              for (int k = 0; k < p.bk; ++k) part += xm[k] * tm[k * p.cw];
-              acc += part;
+            // the group's warps' sums in ascending warp order
+            const float* rs = red_s + r * p.cw + j;
+            float acc = rs[0];
+            for (int w = 1; w < f32_warps(p.cw); ++w) {
+              acc = __fadd_rn(acc, rs[w * kRows * p.cw]);
             }
             pre = n_mm > 0 ? __fadd_rn(up, acc) : up;
           }

@@ -10,7 +10,10 @@ The recurrent reduction is driven by the plan's static per-band term lists
 and, in int8 mode, culled digit plane-blocks — never appear, the analogue
 of the paper's synthesis-time adder culling.  Two modes share one kernel:
 
-* ``fp32`` — dequantized tiles, summed in ascending row order;
+* ``fp32`` — dequantized tiles in IEEE fp32 FMAs; on the card each
+  output's rows split over a thread block's warps and lanes into fixed
+  partial sums, reduced in a fixed tree (an order set by the grid and the
+  table, never by the batch), in the twin in ascending row order;
 * ``int8`` — exact digit-plane arithmetic: the state batch is requantized
   every step and each term is a shifted int32 plane-tile product.
 
@@ -165,11 +168,12 @@ class BlockShares:
     to 16 bytes), then its ``cw`` columns of every MM term's tile in that
     order — int8 tiles as m16n8k32 B fragments (``(term, 32-row chunk,
     8-column group)`` x 256 bytes, lane ``l``'s 8 bytes at ``8 l``), fp32
-    tiles as ``(term, row, column)`` floats — then its shift-add digits
-    as one uint32 each (row of the state, column within the slice << 16,
-    shift << 24, negative << 28).  ``meta`` rows are ``(offset, MM terms,
-    digits, share bytes)``; shares are padded to 16 bytes for the bulk
-    copy.
+    tiles as ``(term, 8-column group, row, column)`` floats (a warp reads
+    4 rows of a group as 32 consecutive floats) — then its shift-add
+    digits as one uint32 each (row of the state, column within the slice
+    << 16, shift << 24, negative << 28).  ``meta`` rows are ``(offset, MM
+    terms, digits, share bytes)``; shares are padded to 16 bytes for the
+    bulk copy.
     """
 
     n_blocks: int
@@ -230,6 +234,9 @@ def pack_blocks(tables: RolloutTables, n_blocks: int) -> BlockShares:
             if tables.int8:
                 part = part.reshape(len(mm), kch, 2, 4, 4, groups, 8
                                     ).transpose(0, 1, 5, 6, 3, 2, 4)
+            else:
+                part = part.reshape(len(mm), bk, groups, 8
+                                    ).transpose(0, 2, 1, 3)
             tile_bytes = np.ascontiguousarray(part).view(np.uint8).reshape(-1)
             mine = dg[(dg[:, 1] >= c0) & (dg[:, 1] < c0 + cw)]
             words = (mine[:, 0].astype(np.uint32)
@@ -252,11 +259,19 @@ def stage_stride(tables: RolloutTables) -> int:
     return tables.rows_pad * (1 if tables.int8 else 4) + _ALIGN
 
 
+def _f32_warps(cw: int) -> int:
+    """Warps that split one 8-column group's rows in the fp32 product
+    (``f32_warps`` in ``csrc/rollout.cu``): each output sums 4 x this many
+    partials."""
+    return max(1, 8 // (cw // _MMA_COLS))
+
+
 def smem_bytes(tables: RolloutTables, cw: int, share: int = 0) -> int:
     """Dynamic shared memory of one block: the mbarrier, one batch tile of
-    the working state, the int32 accumulator (int8), each output's
-    u . W_in and x(n-1) (fp32) and, when resident, the block's share."""
-    per_output = (3 if tables.int8 else 2) * 4
+    the working state, the int32 accumulator (int8) or the warps' fp32
+    partial sums (``_f32_warps(cw)`` per output), each output's u . W_in
+    and x(n-1) (fp32) and, when resident, the block's share."""
+    per_output = (3 if tables.int8 else 2 + _f32_warps(cw)) * 4
     return (_BAR_BYTES + _MMA_ROWS * stage_stride(tables)
             + _MMA_ROWS * cw * per_output + share)
 

@@ -14,7 +14,9 @@ tile product per kept (plane, block).  This kernel consumes a
   in turn for its own column slice.
 
 int8 terms accumulate in exact int32, so every schedule is bit-identical
-to the generic kernel; fp32 terms keep its ascending-row order.  The
+to the generic kernel; fp32 terms reduce in its order (on the card fixed
+partial sums over a block's warps and lanes, in the twin ascending
+rows).  The
 program's regime (``resident`` / ``pipelined``) changes only how columns
 group into bands, which only the plain twin walks: the CUDA kernel
 repacks every band's tiles into per-thread-block shares

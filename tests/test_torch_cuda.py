@@ -4,8 +4,11 @@ Run on a machine with an NVIDIA GPU:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py``.
 Rollout: each call is one cooperative launch (no per-step or readout
 launch); int8 kernel states equal the plain twins' exactly and B1's equal
-B2's; fp32 within 1e-4 (another summation order in the tile products),
-readouts within 1e-4; a donated carry resumes bit for bit.  Bitplane gemv
+B2's; fp32 within 1e-4 (another summation order in the tile products:
+the kernel splits each output's rows into fixed partial sums over a
+block's warps and lanes and reduces them in a fixed tree), and a batch of
+16 rows bit for bit its rows launched one at a time; readouts within
+1e-4; a donated carry resumes bit for bit.  Bitplane gemv
 and the integer BCSR product equal their twins exactly; float BCSR products
 and reservoir-step trajectories within 1e-4.  The torch serve backend on
 the card: within 1e-4 of the kernels, its int8 products exact, fp32 kept
@@ -249,6 +252,58 @@ def test_rollout_launch_too_large_raises(cuda):
     s, n, ro = _run(specialized_rollout, op, u, x0, 4, 1, want_states=True)
     torch.cuda.synchronize()
     assert (n, ro) == (1, 0) and torch.equal(s, torch.zeros_like(s))
+
+
+@pytest.mark.parametrize("n_blocks", [None, 7])
+@pytest.mark.parametrize("cls", [FusedRollout, SpecializedRollout])
+def test_fp32_rollout_rows_independent_of_batch(cuda, cls, n_blocks):
+    """The fp32 branch at PAPER_BASELINE's shape (dim 800, block 128, 75 %
+    of elements zero, all 49 blocks kept): every output's sum order is set
+    by the grid and the table alone, so one launch of 16 rows gives, row
+    by row, the same states, predictions and final state bit for bit as
+    16 launches of one row each, and as launches of 2, 3, 5 and 6 rows
+    (the kernel's 2-, 4- and 8-row accumulator sets).  On the default grid
+    (112 blocks of 8 columns, shares resident) and on 7 blocks of 128
+    columns (shares streamed); both within 1e-4 of the plain twin."""
+    from repro_torch.configs.esn_paper import PAPER_BASELINE
+    from repro_torch.core.esn import init_esn
+    params = init_esn(PAPER_BASELINE, device=cuda)
+    rng = np.random.default_rng(29)
+    w_out = rng.uniform(-0.1, 0.1, (800, 2)).astype(np.float32)
+    op = cls(params.w.plan(), params.w_in, leak=0.3, mode="fp32",
+             w_out=w_out, device=cuda)
+    fn = (reservoir_rollout if cls is FusedRollout
+          else specialized_rollout)
+    plain = (reservoir_rollout_plain if cls is FusedRollout
+             else specialized_rollout_plain)
+    assert (op.tables.n_col_blocks, op.tables.block,
+            op.tables.n_matmul_terms) == (7, 128, 49)
+    grid, _ = rollout_grid(op.tables, cuda, n_blocks)
+    assert (grid.n_blocks, grid.cw, grid.resident) == (
+        (112, 8, True) if n_blocks is None else (7, 128, False))
+    t, b = 24, 16
+    u = torch.as_tensor(rng.standard_normal((t, b, params.w_in.shape[0])),
+                        dtype=torch.float32, device=cuda)
+    x0 = torch.as_tensor(0.5 * rng.standard_normal((b, 800)),
+                         dtype=torch.float32, device=cuda)
+    kw = dict(want_states=True, want_preds=True, want_final=True)
+    (s, p, f), n, ro = _run(fn, op, u, x0, b, 1, n_blocks=n_blocks, **kw)
+    assert (n, ro) == (1, 0)
+    rows = [(i, i + 1) for i in range(b)] + [(0, 2), (2, 5), (5, 10),
+                                             (10, 16)]
+    for lo, hi in rows:
+        (s1, p1, f1), n, ro = _run(fn, op, u[:, lo:hi], x0[lo:hi], hi - lo,
+                                   1, n_blocks=n_blocks, **kw)
+        assert (n, ro) == (1, 0)
+        assert torch.equal(s1, s[:, lo:hi])
+        assert torch.equal(p1, p[:, lo:hi])
+        assert torch.equal(f1, f[lo:hi])
+    ps, pp, pf = plain(u, op.tables, op.w_in, x0, op.w_out, leak=op.leak,
+                       smax=op.smax, recur_scale=op.recur_scale, **kw)
+    torch.cuda.synchronize()
+    assert (s - ps).abs().max().item() <= 1e-4
+    assert (f - pf).abs().max().item() <= 1e-4
+    assert (p - pp).abs().max().item() <= 1e-4
 
 
 # -- fixed-matrix kernels (B3, B4, B5) against their twins on the card --------

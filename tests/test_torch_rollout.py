@@ -268,7 +268,8 @@ def _decode_shares(tables, shares, x):
     """The kernel's reads of the packed shares, in numpy: each block's MM
     tiles decoded by the m16n8k32 B-fragment layout (lane l holds rows
     4 (l % 4) + e and 16 + 4 (l % 4) + e of column l // 4) or as fp32
-    (term, row, column) floats, its digits from their uint32 words; the
+    (term, 8-column group, row, column) floats, its digits from their
+    uint32 words; the
     recurrent product of the (B, rows_pad) state ``x`` over all blocks."""
     bk, cw = tables.block, shares.cw
     groups, kch = cw // 8, bk // 32
@@ -298,7 +299,8 @@ def _decode_shares(tables, shares, x):
             else:
                 at = head + m * bk * cw * 4
                 w = share[at:at + bk * cw * 4].view(np.float32).reshape(
-                    bk, cw).astype(np.float64)
+                    groups, bk, 8).transpose(1, 0, 2).reshape(
+                        bk, cw).astype(np.float64)
             prod = x[:, rb * bk:(rb + 1) * bk] @ w
             out[:, c0:c0 + cw] += prod << shift if exact else prod
         at = head + tile_bytes
@@ -306,6 +308,53 @@ def _decode_shares(tables, shares, x):
         for word in words.astype(np.int64):
             v = x[:, word & 0xFFFF] << ((word >> 24) & 0xF)
             out[:, c0 + ((word >> 16) & 0xFF)] += -v if word >> 28 else v
+    return out
+
+
+def _replay_f32_lanes(tables, shares, x):
+    """The fp32 product as the kernel's lanes read it, in float64: in each
+    block, warp unit (group g, range w) of ``max(1, 8 / groups)`` ranges
+    per group, lane (column j8, kq) reads rows q = w * span + kq, + 4, ...
+    of the flattened q = term * bk + row, its state word at (mm[m].x - m) *
+    bk + q and its tile word at (m (groups - 1) + g) bk 8 + 8 q + j8.
+    Asserts every output reads each row of its terms, and each tile word
+    of its column, exactly once; returns the (B, rows_pad) product."""
+    bk, cw = tables.block, shares.cw
+    groups = cw // 8
+    wpg = max(1, 8 // groups)
+    x = x.astype(np.float64)
+    out = np.zeros((x.shape[0], tables.rows_pad))
+    j8 = np.arange(8)
+    for blk in range(shares.n_blocks):
+        ci, sl = divmod(blk, shares.slices)
+        c0 = ci * bk + sl * cw
+        off, n_mm, _n_digits, n_bytes = shares.meta[blk]
+        share = shares.blob[off:off + n_bytes]
+        mm = share[:8 * n_mm].view(np.int32).reshape(-1, 2)
+        head = -(-8 * n_mm // 16) * 16
+        tiles = share[head:head + n_mm * bk * cw * 4].view(
+            np.float32).astype(np.float64)
+        span = n_mm * bk // wpg
+        assert span % 4 == 0
+        rows = np.sort((mm[:, :1] * bk + np.arange(bk)).reshape(-1))
+        for g in range(groups):
+            read_x, read_w = [], []
+            for w in range(wpg):
+                for kq in range(4):
+                    q = np.arange(w * span + kq, (w + 1) * span, 4)
+                    m = q // bk
+                    xi = (mm[m, 0] - m) * bk + q
+                    wi = (m * (groups - 1) + g) * bk * 8 + 8 * q
+                    out[:, c0 + g * 8:c0 + g * 8 + 8] += (
+                        x[:, xi] @ tiles[wi[:, None] + j8])
+                    read_x.append(xi)
+                    read_w.append(wi)
+            np.testing.assert_array_equal(np.sort(np.concatenate(read_x)),
+                                          rows)
+            want_w = ((np.arange(n_mm)[:, None] * groups + g) * bk
+                      + np.arange(bk)) * 8
+            np.testing.assert_array_equal(np.sort(np.concatenate(read_w)),
+                                          np.sort(want_w.reshape(-1)))
     return out
 
 
@@ -365,6 +414,45 @@ def test_block_shares_decode_to_recurrent_product(mode, regime, kernel):
     else:
         x = rng.standard_normal((3, DIM)).astype(np.float32)
     _check_shares(tables, x, (1, 2, 4, 8))          # 8 columns at 8
+
+
+@pytest.mark.parametrize("kernel", ["generic", "specialized"])
+@pytest.mark.parametrize("regime", REGIMES)
+def test_fp32_lane_partials_replay_recurrent_product(regime, kernel):
+    """The fp32 kernel's split of every output's rows over warps and lanes
+    (one per slicing: 8 to 64 columns a block at block 64), replayed on
+    the shares: each row of each term read once per output, the sum within
+    1e-5 of the twin's product."""
+    _j, _js, t_gen, t_spec = _pair("fp32", regime)
+    tables = (t_gen if kernel == "generic" else t_spec).tables
+    x = np.random.default_rng(6).standard_normal((3, DIM)).astype(np.float32)
+    want = plain_recurrent_product(torch.as_tensor(x), tables).numpy()
+    for slices in (1, 2, 4, 8):
+        shares = pack_blocks(tables, tables.n_col_blocks * slices)
+        np.testing.assert_allclose(_replay_f32_lanes(tables, shares, x),
+                                   want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("cls", [FusedRollout, SpecializedRollout])
+def test_fp32_lane_partials_at_paper_baseline(cls):
+    """dim 800 in 7 x 7 blocks of 128 (the last column block 96 wide), on
+    the default grid's 8-column slices and on one 128-column slice per
+    column block: the kernel's lane reads cover every term row once and
+    sum to the twin's product within 1e-5."""
+    from repro_torch.configs.esn_paper import PAPER_BASELINE
+    from repro_torch.core.esn import init_esn
+    params = init_esn(PAPER_BASELINE, device="cpu")
+    tables = cls(params.w.plan(), params.w_in, mode="fp32",
+                 device="cpu").tables
+    assert (tables.n_col_blocks, tables.block,
+            tables.n_matmul_terms) == (7, 128, 49)
+    x = np.zeros((2, tables.rows_pad), np.float32)
+    x[:, :800] = np.random.default_rng(7).standard_normal((2, 800))
+    want = plain_recurrent_product(torch.as_tensor(x), tables).numpy()
+    for slices in (16, 1):
+        shares = pack_blocks(tables, 7 * slices)
+        np.testing.assert_allclose(_replay_f32_lanes(tables, shares, x),
+                                   want, rtol=0, atol=1e-5)
 
 
 def test_block_shares_carry_shift_add_digits():
@@ -482,14 +570,15 @@ def test_large_1024_default_grid(large_1024):
     128 blocks of 8 columns on 132 SMs, whatever the tables' share; with
     room for only 100 blocks it falls to 64.  fp32 stages 16 rows of
     4 x 1024 + 16 bytes and keeps B1's 32 KiB of tiles (8 terms)
-    resident."""
+    resident.  Its 16 x 8 outputs keep u . W_in, x(n-1) and the 8 warps'
+    partial sums of the fp32 product (8 x 4 bytes each)."""
     b2, b1, f32 = large_1024
     for tables in (b2, b1, f32):
         assert plan_grid(tables, _one_per_sm).n_blocks == 128
         assert plan_grid(tables, lambda smem: 100).n_blocks == 64
     grid = plan_grid(f32, _one_per_sm)
     assert (grid.share_bytes, grid.resident) == (64 + 32 * 1024, True)
-    assert grid.smem == 16 + 16 * (4 * 1024 + 16) + 16 * 8 * 8 + 64 + \
-        32 * 1024
+    assert grid.smem == 16 + 16 * (4 * 1024 + 16) + 16 * 8 * (8 + 8 * 4) + \
+        64 + 32 * 1024
     with pytest.raises(ValueError, match="shared memory"):
         plan_grid(f32, lambda smem: 0)
