@@ -46,10 +46,10 @@ from repro_torch.kernels.reservoir_rollout import _cuda
 from repro_torch.plan.specialize import MM
 
 __all__ = ["BlockShares", "RolloutGrid", "RolloutTables", "build_tables",
-           "generic_schedules", "pack_blocks", "plain_recurrent_product",
-           "plan_grid", "reservoir_rollout", "reservoir_rollout_plain",
-           "rollout_grid", "rollout_readout", "rollout_readout_plain",
-           "smem_bytes"]
+           "generic_schedules", "launch_counts", "pack_blocks",
+           "plain_recurrent_product", "plan_grid", "reservoir_rollout",
+           "reservoir_rollout_plain", "rollout_grid", "rollout_readout",
+           "rollout_readout_plain", "smem_bytes"]
 
 # The persistent kernel's geometry (csrc/rollout.cu).
 _MMA_ROWS = 16                # batch rows per tile: the MMA's M
@@ -350,7 +350,25 @@ def rollout_grid(tables: RolloutTables, device: torch.device,
         ops = (torch.as_tensor(grid.shares.blob, device=device),
                torch.as_tensor(grid.shares.meta, device=device))
         tables.grids[key] = (grid, ops)
+        obs.event("rollout_grid", mode=tables.mode, n_blocks=grid.n_blocks,
+                  cw=grid.cw, resident=grid.resident,
+                  share_bytes=grid.share_bytes, smem=grid.smem,
+                  blob_bytes=int(grid.shares.blob.nbytes),
+                  mm_terms=tables.n_matmul_terms, digits=tables.n_digits)
     return tables.grids[key]
+
+
+def launch_counts(grid: RolloutGrid, steps: int, batch: int, b_tile: int
+                  ) -> tuple[int, int]:
+    """What one launch on ``grid`` adds to the kernels layer's counters:
+    ``(streamed share bytes, shift-add digits)``.  Streamed shares are
+    read whole from global memory by every block once per batch tile per
+    step (none beyond the one bulk copy when resident); each digit is
+    scattered once per batch row per step."""
+    meta = grid.shares.meta
+    streamed = 0 if grid.resident else (int(meta[:, 3].sum()) * steps
+                                         * -(-batch // b_tile))
+    return streamed, int(meta[:, 2].sum()) * steps * batch
 
 
 # -- readout kernel -----------------------------------------------------------
@@ -462,7 +480,8 @@ def _launch_rollout(counted, u_seq, tables, w_in, x0, w_out=None, *,
                     want_final=False, final_out=None, n_blocks=None):
     """One cooperative launch of the persistent kernel for all T steps
     (counted on ``counted.launches``; with ``want_preds`` the readout is
-    computed inside it, counted on ``rollout_readout.fused_launches``).
+    computed inside it, counted on ``rollout_readout.fused_launches``;
+    with metrics on, its :func:`launch_counts` too).
     The last step writes straight into the final-state buffer — the
     caller's carry when it donates one.  ``n_blocks`` sets the grid
     (default: :func:`plan_grid`'s choice); the entry points leave it to
@@ -504,6 +523,10 @@ def _launch_rollout(counted, u_seq, tables, w_in, x0, w_out=None, *,
     if want_preds:
         rollout_readout.fused_launches += 1
     obs.inc("kernel_launches_total", kernel=name)
+    if obs.metrics() is not None:
+        streamed, digits = launch_counts(grid, t_steps, b, b_tile)
+        obs.inc("rollout_streamed_bytes_total", streamed, kernel=name)
+        obs.inc("rollout_shiftadd_digits_total", digits, kernel=name)
     return _pack(states, preds, final)
 
 

@@ -19,6 +19,7 @@ Well-known kinds emitted by the instrumented sites:
 ``engine_cache_miss`` ``engine_for`` built instead of reusing
 ``plan_lowering``     ``plan_for`` lowered a matrix (cache miss)
 ``specialize``        ``specialize_rollout`` built a rollout program
+``rollout_grid``      a rollout table's grid and shares packed for a device
 ====================  ======================================================
 """
 

@@ -306,6 +306,111 @@ def test_fp32_rollout_rows_independent_of_batch(cuda, cls, n_blocks):
     assert (p - pp).abs().max().item() <= 1e-4
 
 
+_LARGEST = {}
+
+
+def _esn4096_fm():
+    """The paper's largest reservoir's shape (``esn4096-csd98``): dim
+    4,096, 98 % of elements zero, block 128, int8-CSD; a seeded draw
+    scaled near spectral radius 0.9.  All 1,024 blocks are folded tiles,
+    the CSD top plane's digits shift-adds."""
+    if not _LARGEST:
+        rng = np.random.default_rng(30)
+        _LARGEST["fm"] = FixedMatrix.compile(
+            random_sparse_matrix(4096, 4096, 0.98, rng) * 0.17,
+            weight_bits=8, mode="csd", block=128, rng=rng)
+        _LARGEST["w_in"] = rng.uniform(-0.5, 0.5, (1, 4096)).astype(
+            np.float32)
+        _LARGEST["w_out"] = (rng.standard_normal((4096, 1)) / 64).astype(
+            np.float32)
+    return _LARGEST["fm"], _LARGEST["w_in"], _LARGEST["w_out"]
+
+
+def _esn4096_op(cuda):
+    fm, w_in, w_out = _esn4096_fm()
+    op = SpecializedRollout(fm, w_in, mode="int8", w_out=w_out, device=cuda)
+    assert (op.tables.n_matmul_terms, op.program.crossover) == (1024, 64)
+    assert op.tables.n_digits > 30_000
+    return op
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+def test_esn4096_default_grid_matches_twin(cuda, batch):
+    """dim 4,096 on the default grid, whose shares do not fit beside a
+    whole grid's state tiles and stream from global memory every step,
+    with the top plane's digits scattered: B2 equals its plain twin bit
+    for bit in states and final state over T = 64, in one launch.
+    Predictions within 1e-4: the kernel sums the blocks' partial
+    readouts in ascending block order, the twin takes one x @ W_out."""
+    op = _esn4096_op(cuda)
+    grid, _ = rollout_grid(op.tables, cuda)
+    assert not grid.resident and grid.n_blocks % 32 == 0
+    rng = np.random.default_rng(batch)
+    u = torch.as_tensor(rng.uniform(-1, 1, (64, batch, 1)),
+                        dtype=torch.float32, device=cuda)
+    x0 = torch.as_tensor(0.5 * rng.standard_normal((batch, 4096)),
+                         dtype=torch.float32, device=cuda)
+    kw = dict(want_states=True, want_preds=True, want_final=True)
+    (s, p, f), n, ro = _run(specialized_rollout, op, u, x0,
+                            op._batch_tile(batch), 1, **kw)
+    assert (n, ro) == (1, 0)
+    ps, pp, pf = specialized_rollout_plain(
+        u, op.tables, op.w_in, x0, op.w_out, leak=op.leak, smax=op.smax,
+        recur_scale=op.recur_scale, **kw)
+    torch.cuda.synchronize()
+    assert s.abs().max().item() > 0.1
+    assert torch.equal(s, ps) and torch.equal(f, pf)
+    assert (p - pp).abs().max().item() <= 1e-4
+
+
+def test_esn4096_rows_independent_of_batch(cuda):
+    """A 4-row launch at dim 4,096 equals its rows launched one at a time,
+    bit for bit, in states, predictions and final state."""
+    op = _esn4096_op(cuda)
+    rng = np.random.default_rng(4)
+    u = torch.as_tensor(rng.uniform(-1, 1, (64, 4, 1)),
+                        dtype=torch.float32, device=cuda)
+    x0 = torch.as_tensor(0.5 * rng.standard_normal((4, 4096)),
+                         dtype=torch.float32, device=cuda)
+    kw = dict(want_states=True, want_preds=True, want_final=True)
+    (s, p, f), _n, _ro = _run(specialized_rollout, op, u, x0, 4, 1, **kw)
+    for r in range(4):
+        (s1, p1, f1), _n, _ro = _run(specialized_rollout, op, u[:, r:r + 1],
+                                     x0[r:r + 1], 1, 1, **kw)
+        assert torch.equal(s1, s[:, r:r + 1])
+        assert torch.equal(p1, p[:, r:r + 1])
+        assert torch.equal(f1, f[r:r + 1])
+
+
+def test_esn4096_counters_read_launch_counts(cuda):
+    """With ``obs`` on, a fresh table's first launch records one
+    ``rollout_grid`` event and adds :func:`launch_counts` of its grid to
+    the streamed-bytes and shift-add-digit counters."""
+    from repro_torch import obs
+    from repro_torch.kernels.reservoir_rollout.reservoir_rollout import \
+        launch_counts
+    op = _esn4096_op(cuda)
+    u = torch.zeros((16, 2, 1), device=cuda)
+    x0 = torch.zeros((2, 4096), device=cuda)
+    obs.configure()
+    try:
+        _run(specialized_rollout, op, u, x0, 2, 1, want_preds=True,
+             want_states=False)
+        torch.cuda.synchronize()
+        (ev,) = obs.events().events("rollout_grid")
+        grid, _ = rollout_grid(op.tables, u.device)   # the launch's grid
+        m = obs.metrics()
+        got = tuple(m.get(name).value(kernel="specialized_rollout")
+                    for name in ("rollout_streamed_bytes_total",
+                                 "rollout_shiftadd_digits_total"))
+    finally:
+        obs.disable()
+    assert (ev.fields["n_blocks"], ev.fields["resident"]) == (
+        grid.n_blocks, False)
+    assert got == launch_counts(grid, 16, 2, 2)
+    assert got[0] > 0 and got[1] == op.tables.n_digits * 16 * 2
+
+
 # -- fixed-matrix kernels (B3, B4, B5) against their twins on the card --------
 def _fixed(dim_r, dim_c, sparsity, block, seed=0):
     rng = np.random.default_rng(seed)

@@ -7,9 +7,13 @@ trace id, each naming its parent and nested in time.  ``run_segment``
 records the launch and the sync with no root.  Tracing off records
 nothing and reads the clock no more than the request's timings need;
 events and spans share ``time.perf_counter``; the span, histogram and
-event this path no longer emits stay gone.
+event this path no longer emits stay gone.  The rollout kernels' grid
+event and counters: what :func:`launch_counts` gives on resident and
+streamed shares, and what the card-only launch path records, driven on
+the CPU with the library stubbed out.
 """
 
+import contextlib
 import pathlib
 import re
 import time
@@ -202,3 +206,113 @@ def test_no_writer_of_the_removed_names_is_left():
             for i, line in enumerate(p.read_text().splitlines(), 1)
             if gone.search(line)]
     assert hits == []
+
+
+# -- the rollout kernels' grid event and counters ------------------------------
+def _digit_tables():
+    """dim 256, block 32, 97 % zeros: B2's tables with shift-add digits,
+    on the CPU."""
+    from repro_torch.core.sparse import FixedMatrix, random_sparse_matrix
+    from repro_torch.kernels.reservoir_rollout.specialized import \
+        SpecializedRollout
+    rng = np.random.default_rng(0)
+    fm = FixedMatrix.compile(random_sparse_matrix(256, 256, 0.97, rng) * 0.05,
+                             weight_bits=8, mode="csd", block=32, rng=rng)
+    op = SpecializedRollout(fm, np.zeros((1, 256), np.float32), mode="int8",
+                            device="cpu")
+    assert op.tables.n_digits > 0
+    return op.tables
+
+
+@pytest.mark.parametrize("resident", [True, False])
+def test_launch_counts_resident_and_streamed(resident):
+    """Resident shares stream nothing beyond the one bulk copy; streamed
+    ones are read whole by every block once per batch tile per step (20
+    rows in tiles of 16: two).  Each digit is scattered once per batch
+    row per step either way."""
+    from repro_torch.kernels.reservoir_rollout.reservoir_rollout import (
+        launch_counts, plan_grid, smem_bytes)
+    tables = _digit_tables()
+    # 32 blocks of 8 columns; streamed: room for the blocks without shares
+    room = 10 ** 6 if resident else smem_bytes(tables, 8)
+    grid = plan_grid(tables, lambda smem: 64 if smem <= room else 0)
+    assert (grid.n_blocks, grid.cw) == (32, 8)
+    assert grid.resident is resident
+    share_total = int(grid.shares.meta[:, 3].sum())
+    assert share_total == grid.shares.blob.nbytes
+    streamed, digits = launch_counts(grid, 7, 20, 16)
+    assert digits == tables.n_digits * 7 * 20
+    assert streamed == (0 if resident else share_total * 7 * 2)
+    assert launch_counts(grid, 7, 16, 16)[0] == streamed // 2
+
+
+def _fake_card(monkeypatch):
+    """The kernels layer's launch path on the CPU: the library, the
+    device context and the stream stand in for the card's (the launch
+    runs nothing), and the capacity is a 132-SM card's, one block an SM."""
+    from repro_torch.kernels.reservoir_rollout import reservoir_rollout as rr
+
+    class Lib:
+        def rollout_run(self, *args):
+            return 0
+
+    class Library:
+        def load(self):
+            return Lib()
+
+    monkeypatch.setattr(rr, "require_cuda", lambda t: None)
+    monkeypatch.setattr(rr, "stream", lambda dev: 0)
+    monkeypatch.setattr(rr._cuda, "LIBRARY", Library())
+    monkeypatch.setattr(rr, "_device_capacity", lambda int8, dev: (
+        lambda smem: 132 if smem <= 227 * 1024 else 0))
+    monkeypatch.setattr(torch.cuda, "device", contextlib.nullcontext)
+    return rr
+
+
+def _launch(rr, tables, t, b):
+    from repro_torch.kernels.reservoir_rollout.specialized import \
+        specialized_rollout
+    return rr._launch_rollout(
+        specialized_rollout, torch.zeros((t, b, 1)), tables,
+        torch.zeros((1, 256)), torch.zeros((b, 256)), torch.zeros((256, 1)),
+        b_tile=min(b, 16), want_states=False, want_preds=True)
+
+
+def test_rollout_grid_event_and_counters(monkeypatch):
+    """One ``rollout_grid`` event per grid built, with the grid's
+    geometry and the table's terms; each launch adds what
+    :func:`launch_counts` says to both counters, under its kernel's
+    name."""
+    rr = _fake_card(monkeypatch)
+    tables = _digit_tables()
+    obs.configure()
+    _launch(rr, tables, 5, 3)
+    _launch(rr, tables, 9, 20)
+    grid, _ = rr.rollout_grid(tables, torch.device("cpu"))
+    (ev,) = obs.events().events("rollout_grid")
+    assert ev.fields == dict(
+        mode="int8", n_blocks=grid.n_blocks, cw=grid.cw,
+        resident=grid.resident, share_bytes=grid.share_bytes,
+        smem=grid.smem, blob_bytes=grid.shares.blob.nbytes,
+        mm_terms=tables.n_matmul_terms, digits=tables.n_digits)
+    want = [a + b for a, b in zip(rr.launch_counts(grid, 5, 3, 3),
+                                  rr.launch_counts(grid, 9, 20, 16))]
+    m = obs.metrics()
+    got = [m.get(name).value(kernel="specialized_rollout")
+           for name in ("rollout_streamed_bytes_total",
+                        "rollout_shiftadd_digits_total")]
+    assert got == want and want[1] == tables.n_digits * (5 * 3 + 9 * 20)
+
+
+def test_rollout_sites_record_nothing_when_off(monkeypatch):
+    """With ``obs`` off a launch records nothing and never counts."""
+    rr = _fake_card(monkeypatch)
+
+    def refuse(*a):
+        raise AssertionError("launch_counts called with obs off")
+
+    monkeypatch.setattr(rr, "launch_counts", refuse)
+    _launch(rr, _digit_tables(), 4, 2)
+    assert obs.active() is None
+    obs.configure()
+    assert len(obs.events()) == 0 and obs.metrics().families() == []
