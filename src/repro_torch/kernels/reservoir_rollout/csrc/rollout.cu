@@ -24,7 +24,10 @@
 // VMEM across a (T, ...) grid.  Here the T loop runs inside one
 // cooperative launch whose blocks are all resident (the grid is sized by
 // the wrapper from cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SM
-// count), with one grid-wide barrier between steps.
+// count), with one grid-wide barrier between steps: each block's first
+// thread adds 1 to a count with release semantics (after a __syncthreads)
+// and waits with acquire loads until the count reaches (t + 1) x blocks,
+// so a block can work between its arrival and its wait.
 //   * Ownership.  Block k owns `cw` consecutive output columns (a slice of
 //     one column block; 8 at LARGE_1024 with 128 blocks) for every batch
 //     row and every step.  Only the owner writes its columns: of the
@@ -75,10 +78,24 @@
 //     contraction), requantization rounding half to even (rintf) -- the
 //     plain PyTorch twin's rounding sequence, so int8 states match it bit
 //     for bit.  A column with no terms gets pre = up in fp32.
-//   * Readout.  Every k steps each block writes its partial x(n) . W_out
-//     over its columns into a (T/k, blocks, B, O) scratch; after the last
-//     barrier all threads reduce it over the blocks in ascending order, so
-//     predictions are the same from run to run and for any T or chunking.
+//   * Readout.  Every k steps each block forms its partial x(n) . W_out
+//     over its cw columns: the epilogue leaves each thread's x(n) in
+//     shared memory (its own slot of the x(n-1) buffer), and a row's cw
+//     products x(n, j) * W_out[j, o] meet in one pairwise tree over column
+//     index j (adjacent pairs first, zero-padded to a power of two).  When
+//     cw divides 32 a row's columns are one lane group of a warp: each
+//     thread reads back only its own x(n), the tree is __shfl_xor_sync
+//     levels of width cw, unrolled, and it runs between the block's
+//     arrival at the step barrier and its wait, off the step's critical
+//     path (for the last batch tile; on the last step before arriving).
+//     No __syncthreads of its own and no read-back of xkeep.  Wider slices
+//     (cw > 32, small explicit grids) run the same tree after one
+//     __syncthreads, 32 columns per lane group and then over the groups.
+//     The order depends on cw alone -- never on the batch, the tile, T or
+//     chunking.  Lane 0 of the row writes the partial into a (T/k, blocks,
+//     B, O) scratch; after the last barrier all threads reduce it over the
+//     blocks in ascending order, so predictions are the same from run to
+//     run, at any batch and for any T or chunking.
 //
 // Bound at the LARGE_1024 serve shape (B = 16 slots, R = 1024, int8-CSD,
 // 64 folded 128x128 tiles): one step is 16 * 1024 * 1024 int8 MACs, about
@@ -101,6 +118,14 @@
 // same card and clock).  The earlier branch, one chain of 896 FMAs per
 // output on bt * cw threads of a block, took 13.26-13.37 us at batch 1
 // and 14.52-14.56 us at batch 16.
+// With the readout, as the serving engine launches B2 (predictions and
+// final state; CUDA events around 4 queued launches of T = 3,000, same
+// card and clock), a step at batch 1 / 4 / 16 takes 3.12-3.16 / 3.33 /
+// 3.37 us at LARGE_1024, 3.55-3.57 / 4.27 / 6.42 us in fp32 at dim 800 and
+// 8.67-8.69 / 10.39 / 13.72 us at dim 4,096 (256 blocks, shares
+// streamed); the readout adds 0.07-0.46 us to a step without it.  Summed
+// by one thread from xkeep after an extra __syncthreads, it took 3.33 /
+// 3.77 / 3.87, 3.91-3.97 / 4.84 / 6.93 and 9.07-9.14 / 10.86 / 14.26 us.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -133,7 +158,8 @@ struct Params {
   float* states;                        // (T, B, dim), or null
   float* preds;                         // (T / k, B, O), or null
   float* final_state;                   // (B, dim), or null
-  unsigned char* xbuf;                  // (2, B, ldx bytes) working state
+  unsigned char* xbuf;                  // (2, B, ldx bytes) working state,
+                                        // then the step barrier's count
   float* xkeep;                         // (B, rpad) owner's fp32 x(n)
   float* partial;                       // (T / k, blocks, B, O)
   const unsigned char* __restrict__ blob;   // per-block shares
@@ -163,6 +189,40 @@ __device__ __forceinline__ void flush(int* acc_s, int cw, int g, int lane,
   atomicAdd(&acc_s[gid * cw + col + 1], acc[1]);
   atomicAdd(&acc_s[(gid + 8) * cw + col], acc[2]);
   atomicAdd(&acc_s[(gid + 8) * cw + col + 1], acc[3]);
+}
+
+// The readout's tree over a block's cw columns stays inside a row's lane
+// group when the row's columns are whole lane groups of one warp (cw
+// divides 32); otherwise a warp per row reads it from shared memory
+// ("shuffle" / "shared" of readout_path in reservoir_rollout.py).
+__device__ __forceinline__ bool shuffle_readout(int cw) {
+  return cw <= 32 && 32 % cw == 0;
+}
+
+// The pairwise tree over W consecutive lanes: adjacent pairs first, every
+// lane of a group left with its group's sum.  IEEE addition commutes, so
+// both lanes of a pair form the same bits.
+template <int W>
+__device__ __forceinline__ float lane_tree(float v, unsigned mask) {
+#pragma unroll
+  for (int s = 1; s < W; s <<= 1) {
+    v = __fadd_rn(v, __shfl_xor_sync(mask, v, s, W));
+  }
+  return v;
+}
+
+// lane_tree over `width` lanes, a power of two up to 32, unrolled: a
+// loop over a run-time width costs several times its shuffles.
+__device__ __forceinline__ float lane_tree(float v, unsigned mask,
+                                           int width) {
+  switch (width) {
+    case 1: return v;
+    case 2: return lane_tree<2>(v, mask);
+    case 4: return lane_tree<4>(v, mask);
+    case 8: return lane_tree<8>(v, mask);
+    case 16: return lane_tree<16>(v, mask);
+    default: return lane_tree<32>(v, mask);
+  }
 }
 
 // Warps per 8-column group in the fp32 product: each output sums 4 W
@@ -232,6 +292,81 @@ __device__ __forceinline__ void store_work(unsigned char* buf, int ldx, int b,
   }
 }
 
+// The step barrier's halves: the block's arrival, ordered after everything
+// the block wrote before it, and the wait for an arrival count.
+__device__ __forceinline__ void arrive(unsigned long long* count) {
+  asm volatile("red.release.gpu.global.add.u64 [%0], 1;" ::"l"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void wait_for(const unsigned long long* count,
+                                         unsigned long long n) {
+  unsigned long long seen;
+  do {
+    asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+                 : "=l"(seen)
+                 : "l"(count)
+                 : "memory");
+  } while (seen < n);
+}
+
+// One batch tile's partial readout, rows b0 .. b0 + bt - 1: x(n) . W_out
+// over the block's cw columns starting at c0, from the tile's x(n) in xt
+// (bt x cw; a pad column holds 0 and adds 0), into part (B, O).  Shuffle
+// path: thread idx reads back the x(n) it wrote and a row's cw lanes meet
+// in lane_tree.  Shared path: after one __syncthreads a warp per (row,
+// output) runs the same tree, lane c over columns 32c .. 32c + 31, then
+// over the lanes' sums.
+__device__ __forceinline__ void tile_readout(const Params& p, float* part,
+                                             const float* xt, int bt, int b0,
+                                             int c0, bool shuffle) {
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  if (shuffle) {
+    for (int idx = tid; idx < bt * p.cw; idx += kThreads) {
+      // the pass's live lanes are whole rows: bt * cw - (idx - lane) is a
+      // multiple of cw
+      const int live = min(32, bt * p.cw - (idx - lane));
+      const unsigned mask = live == 32 ? 0xffffffffu : (1u << live) - 1u;
+      const int r = idx / p.cw;
+      const int j = idx - r * p.cw;
+      const int col = c0 + j;
+      for (int o = 0; o < p.out_dim; ++o) {
+        const float v =
+            col < p.dim
+                ? __fmul_rn(xt[idx],
+                            __ldg(p.w_out + (size_t)col * p.out_dim + o))
+                : 0.0f;
+        const float y = lane_tree(v, mask, p.cw);
+        if (j == 0) part[(size_t)(b0 + r) * p.out_dim + o] = y;
+      }
+    }
+    return;
+  }
+  __syncthreads();    // every thread's x(n) is in xt
+  const int chunks = (p.cw + 31) >> 5;
+  int width = 1;
+  while (width < chunks) width <<= 1;
+  for (int task = warp; task < bt * p.out_dim; task += kWarps) {
+    const int r = task / p.out_dim;
+    const int o = task - r * p.out_dim;
+    float sum = 0.0f;
+    for (int c = 0; c < chunks; ++c) {
+      const int j = c * 32 + lane;
+      const int col = c0 + j;
+      const float v =
+          j < p.cw && col < p.dim
+              ? __fmul_rn(xt[r * p.cw + j],
+                          __ldg(p.w_out + (size_t)col * p.out_dim + o))
+              : 0.0f;
+      const float s = lane_tree<32>(v, 0xffffffffu);
+      if (lane == c) sum = s;
+    }
+    sum = lane_tree(sum, 0xffffffffu, width);
+    if (lane == 0) part[(size_t)(b0 + r) * p.out_dim + o] = sum;
+  }
+}
+
 template <bool INT8>
 __global__ void __launch_bounds__(kThreads)
 rollout_kernel(const Params p) {
@@ -284,6 +419,10 @@ rollout_kernel(const Params p) {
     p.xkeep[(size_t)b * p.rpad + col] = v;
     store_work<INT8>(p.xbuf, p.ldx, b, col, v, p.smax);
   }
+  // the step barrier's arrival count, after the two halves of xbuf
+  unsigned long long* arrived =
+      reinterpret_cast<unsigned long long*>(p.xbuf + 2 * half);
+  if (blk == 0 && tid == 0) *arrived = 0;
   fence_async_global();
   grid.sync();
   if (load_share) {
@@ -295,9 +434,20 @@ rollout_kernel(const Params p) {
   const int kch = p.bk >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int n_units = n_mm * groups;
+  const bool shuffle = shuffle_readout(p.cw);
   for (int t = 0; t < p.steps; ++t) {
     const unsigned char* xin = p.xbuf + (t & 1) * half;
     unsigned char* xnext = p.xbuf + ((t + 1) & 1) * half;
+    const bool readout = p.preds != nullptr && (t + 1) % p.readout_every == 0;
+    // this block's partial x(n) . W_out of the step, (B, O)
+    float* part = readout ? p.partial + ((size_t)((t + 1) / p.readout_every - 1)
+                                             * gridDim.x + blk) *
+                                            p.batch * p.out_dim
+                          : nullptr;
+    // the shuffle path sums the last tile's rows between the block's
+    // arrival at the step barrier and its wait; on the last step before
+    // arriving, so the last barrier orders them before the blocks' sum
+    const bool defer = readout && shuffle && t + 1 < p.steps;
     for (int b0 = 0; b0 < p.batch; b0 += p.b_tile) {
       const int bt = min(p.b_tile, p.batch - b0);
       __syncthreads();      // the previous tile is done with xs and acc_s
@@ -431,28 +581,24 @@ rollout_kernel(const Params p) {
           }
         }
         store_work<INT8>(xnext, p.ldx, b, col, nx, p.smax);
+        if (readout) prev_s[idx] = nx;    // the readout's x(n)
       }
-    }
-    const bool readout = p.preds != nullptr && (t + 1) % p.readout_every == 0;
-    if (readout) {
-      __syncthreads();      // every owned x(n) is in xkeep
-      const int r = (t + 1) / p.readout_every - 1;
-      float* part = p.partial +
-                    ((size_t)r * gridDim.x + blk) * p.batch * p.out_dim;
-      for (int idx = tid; idx < p.batch * p.out_dim; idx += kThreads) {
-        const int b = idx / p.out_dim;
-        const int o = idx - b * p.out_dim;
-        const float* xr = p.xkeep + (size_t)b * p.rpad;
-        float s = 0.0f;
-        for (int j = 0; j < p.cw && c0 + j < p.dim; ++j) {
-          s = fmaf(xr[c0 + j], p.w_out[(size_t)(c0 + j) * p.out_dim + o], s);
-        }
-        part[idx] = s;
+      if (readout && !(defer && b0 + bt == p.batch)) {
+        tile_readout(p, part, prev_s, bt, b0, c0, shuffle);
       }
     }
     if (t + 1 < p.steps || p.preds != nullptr) {
+      // the step barrier: every block arrives once a step, so after step t
+      // the count reaches (t + 1) x blocks
       fence_async_global();
-      grid.sync();
+      __syncthreads();
+      if (tid == 0) arrive(arrived);
+      if (defer) {
+        const int b0 = (p.batch - 1) / p.b_tile * p.b_tile;
+        tile_readout(p, part, prev_s, p.batch - b0, b0, c0, true);
+      }
+      if (tid == 0) wait_for(arrived, (unsigned long long)(t + 1) * gridDim.x);
+      __syncthreads();
     }
   }
 

@@ -47,9 +47,9 @@ from repro_torch.plan.specialize import MM
 
 __all__ = ["BlockShares", "RolloutGrid", "RolloutTables", "build_tables",
            "generic_schedules", "launch_counts", "pack_blocks",
-           "plain_recurrent_product", "plan_grid", "reservoir_rollout",
-           "reservoir_rollout_plain", "rollout_grid", "rollout_readout",
-           "rollout_readout_plain", "smem_bytes"]
+           "plain_recurrent_product", "plan_grid", "readout_path",
+           "reservoir_rollout", "reservoir_rollout_plain", "rollout_grid",
+           "rollout_readout", "rollout_readout_plain", "smem_bytes"]
 
 # The persistent kernel's geometry (csrc/rollout.cu).
 _MMA_ROWS = 16                # batch rows per tile: the MMA's M
@@ -264,6 +264,16 @@ def _f32_warps(cw: int) -> int:
     (``f32_warps`` in ``csrc/rollout.cu``): each output sums 4 x this many
     partials."""
     return max(1, 8 // (cw // _MMA_COLS))
+
+
+def readout_path(cw: int) -> str:
+    """How the kernel sums a block's partial readout over its ``cw``
+    columns (``shuffle_readout`` in ``csrc/rollout.cu``): ``"shuffle"``,
+    by shuffles within a row's lanes, in the step barrier's wait, when
+    ``cw`` divides 32; ``"shared"``, a warp per row reading the row from
+    shared memory, otherwise.  Both run one pairwise tree over column
+    index, so the sum order depends on ``cw`` alone."""
+    return "shuffle" if cw <= 32 and 32 % cw == 0 else "shared"
 
 
 def smem_bytes(tables: RolloutTables, cw: int, share: int = 0) -> int:
@@ -481,7 +491,8 @@ def _launch_rollout(counted, u_seq, tables, w_in, x0, w_out=None, *,
     """One cooperative launch of the persistent kernel for all T steps
     (counted on ``counted.launches``; with ``want_preds`` the readout is
     computed inside it, counted on ``rollout_readout.fused_launches``;
-    with metrics on, its :func:`launch_counts` too).
+    with metrics on, its :func:`launch_counts` too, and with predictions
+    its readout steps x batch rows under the grid's :func:`readout_path`).
     The last step writes straight into the final-state buffer — the
     caller's carry when it donates one.  ``n_blocks`` sets the grid
     (default: :func:`plan_grid`'s choice); the entry points leave it to
@@ -506,7 +517,8 @@ def _launch_rollout(counted, u_seq, tables, w_in, x0, w_out=None, *,
         final = (final_out if final_out is not None
                  else torch.empty((b, dim), device=dev))
     ldx = stage_stride(tables)
-    xbuf = torch.empty(2 * b * ldx, dtype=torch.uint8, device=dev)
+    # the working state's two halves, then the step barrier's 8-byte count
+    xbuf = torch.empty(2 * b * ldx + _ALIGN, dtype=torch.uint8, device=dev)
     xkeep = torch.empty((b, tables.rows_pad), device=dev)
     name = counted.__name__
     rc = _cuda.LIBRARY.load().rollout_run(
@@ -527,6 +539,10 @@ def _launch_rollout(counted, u_seq, tables, w_in, x0, w_out=None, *,
         streamed, digits = launch_counts(grid, t_steps, b, b_tile)
         obs.inc("rollout_streamed_bytes_total", streamed, kernel=name)
         obs.inc("rollout_shiftadd_digits_total", digits, kernel=name)
+        if want_preds:
+            obs.inc("rollout_readout_rows_total",
+                    t_steps // readout_every * b, kernel=name,
+                    path=readout_path(grid.cw))
     return _pack(states, preds, final)
 
 

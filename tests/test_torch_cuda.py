@@ -32,8 +32,8 @@ from repro_torch.kernels.bitplane_gemv.bitplane_gemv import (
 from repro_torch.kernels.bitplane_gemv.ops import BitplaneGemv
 from repro_torch.kernels.reservoir_rollout.ops import FusedRollout
 from repro_torch.kernels.reservoir_rollout.reservoir_rollout import (
-    _launch_rollout, reservoir_rollout, reservoir_rollout_plain, rollout_grid,
-    rollout_readout)
+    _launch_rollout, readout_path, reservoir_rollout, reservoir_rollout_plain,
+    rollout_grid, rollout_readout)
 from repro_torch.kernels.reservoir_rollout.specialized import (
     SpecializedRollout, specialized_rollout, specialized_rollout_plain)
 from repro_torch.kernels.reservoir_step.ops import FusedReservoir
@@ -306,6 +306,60 @@ def test_fp32_rollout_rows_independent_of_batch(cuda, cls, n_blocks):
     assert (p - pp).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("n_blocks,cw", [(32, 8), (16, 16), (8, 32),
+                                         (4, 64)])
+@pytest.mark.parametrize("mode", ["fp32", "int8"])
+def test_fused_readout_tree_is_repeatable(cuda, mode, n_blocks, cw):
+    """The fused readout's pairwise tree over a block's cw columns, in
+    registers (cw 8, 16, 32) and through shared memory (cw 64), on
+    explicit grids at dim 256, block 128, two outputs: predictions within
+    1e-4 of the twin, one launch and no readout launch per call, and the
+    same bits in two runs, for rows launched alone (batch 1) or 16
+    together, and for T split into two chunks that carry the state.  In
+    int8 B1's predictions equal B2's."""
+    rng = np.random.default_rng(cw)
+    fm = FixedMatrix.compile(random_sparse_matrix(256, 256, 0.95, rng) * 0.05,
+                             weight_bits=8, mode="csd", block=128, rng=rng)
+    w_in = rng.uniform(-0.5, 0.5, (2, 256)).astype(np.float32)
+    w_out = rng.uniform(-0.1, 0.1, (256, 2)).astype(np.float32)
+    b2 = SpecializedRollout(fm, w_in, leak=0.6, mode=mode, w_out=w_out,
+                            device=cuda)
+    grid, _ = rollout_grid(b2.tables, cuda, n_blocks)
+    assert (grid.n_blocks, grid.cw) == (n_blocks, cw)
+    assert readout_path(cw) == ("shuffle" if cw <= 32 else "shared")
+    t, split = 24, 10
+    u = torch.as_tensor(rng.standard_normal((t, 16, 2)),
+                        dtype=torch.float32, device=cuda)
+    x0 = torch.as_tensor(0.5 * rng.standard_normal((16, 256)),
+                         dtype=torch.float32, device=cuda)
+    kw = dict(want_states=False, want_preds=True, want_final=True)
+
+    def run(u, x0, fn=specialized_rollout, op=b2):
+        (p, f), n, ro = _run(fn, op, u, x0, u.shape[1], 1,
+                             n_blocks=n_blocks, **kw)
+        assert (n, ro) == (1, 0)
+        return p, f
+
+    p, _f = run(u, x0)
+    assert torch.equal(run(u, x0)[0], p)
+    for lo, hi in ((0, 1), (7, 8), (15, 16), (0, 16)):
+        if hi - lo == 1:
+            assert torch.equal(run(u[:, lo:hi], x0[lo:hi])[0], p[:, lo:hi])
+        pa, fa = run(u[:split, lo:hi], x0[lo:hi])
+        pb, _fb = run(u[split:, lo:hi], fa)
+        assert torch.equal(torch.cat([pa, pb]), p[:, lo:hi])
+    pp = specialized_rollout_plain(
+        u, b2.tables, b2.w_in, x0, b2.w_out, leak=b2.leak, smax=b2.smax,
+        recur_scale=b2.recur_scale, want_states=False, want_preds=True)
+    torch.cuda.synchronize()
+    assert p.shape == (t, 16, 2) and p.abs().max().item() > 0.01
+    assert (p - pp).abs().max().item() <= 1e-4
+    if mode == "int8":
+        b1 = FusedRollout(fm, w_in, leak=0.6, mode=mode, w_out=w_out,
+                          device=cuda)
+        assert torch.equal(run(u, x0, reservoir_rollout, b1)[0], p)
+
+
 _LARGEST = {}
 
 
@@ -340,8 +394,9 @@ def test_esn4096_default_grid_matches_twin(cuda, batch):
     whole grid's state tiles and stream from global memory every step,
     with the top plane's digits scattered: B2 equals its plain twin bit
     for bit in states and final state over T = 64, in one launch.
-    Predictions within 1e-4: the kernel sums the blocks' partial
-    readouts in ascending block order, the twin takes one x @ W_out."""
+    Predictions within 1e-4: the kernel sums each block's 16 columns in
+    a pairwise tree and the blocks' partials in ascending block order,
+    the twin takes one x @ W_out."""
     op = _esn4096_op(cuda)
     grid, _ = rollout_grid(op.tables, cuda)
     assert not grid.resident and grid.n_blocks % 32 == 0

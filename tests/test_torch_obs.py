@@ -269,13 +269,14 @@ def _fake_card(monkeypatch):
     return rr
 
 
-def _launch(rr, tables, t, b):
+def _launch(rr, tables, t, b, **kw):
     from repro_torch.kernels.reservoir_rollout.specialized import \
         specialized_rollout
     return rr._launch_rollout(
         specialized_rollout, torch.zeros((t, b, 1)), tables,
         torch.zeros((1, 256)), torch.zeros((b, 256)), torch.zeros((256, 1)),
-        b_tile=min(b, 16), want_states=False, want_preds=True)
+        b_tile=min(b, 16), **{"want_states": False, "want_preds": True,
+                              **kw})
 
 
 def test_rollout_grid_event_and_counters(monkeypatch):
@@ -316,3 +317,42 @@ def test_rollout_sites_record_nothing_when_off(monkeypatch):
     assert obs.active() is None
     obs.configure()
     assert len(obs.events()) == 0 and obs.metrics().families() == []
+
+
+def _block128_tables():
+    """dim 256 in two column blocks of 128: B2's int8 tables on the CPU,
+    whose grids of 32, 16, 8, 4 and 2 blocks give slices of 8 to 128
+    columns."""
+    from repro_torch.core.sparse import FixedMatrix, random_sparse_matrix
+    from repro_torch.kernels.reservoir_rollout.specialized import \
+        SpecializedRollout
+    rng = np.random.default_rng(31)
+    fm = FixedMatrix.compile(random_sparse_matrix(256, 256, 0.95, rng) * 0.05,
+                             weight_bits=8, mode="csd", block=128, rng=rng)
+    return SpecializedRollout(fm, np.zeros((1, 256), np.float32),
+                              mode="int8", device="cpu").tables
+
+
+@pytest.mark.parametrize("n_blocks,cw,path", [
+    (32, 8, "shuffle"), (16, 16, "shuffle"), (8, 32, "shuffle"),
+    (4, 64, "shared"), (2, 128, "shared")])
+def test_readout_rows_counter_follows_cw(monkeypatch, n_blocks, cw, path):
+    """``rollout_readout_rows_total`` adds readout steps x batch rows per
+    launch under the grid's readout path, ``"shared"`` only for slices
+    wider than 32 columns; a launch with ``obs`` off and one without
+    predictions add nothing."""
+    rr = _fake_card(monkeypatch)
+    tables = _block128_tables()
+    assert rr.readout_path(cw) == path
+    _launch(rr, tables, 8, 3, n_blocks=n_blocks)          # obs off
+    obs.configure()
+    _launch(rr, tables, 12, 3, n_blocks=n_blocks, readout_every=4)
+    _launch(rr, tables, 5, 20, n_blocks=n_blocks)
+    _launch(rr, tables, 6, 2, n_blocks=n_blocks, want_preds=False,
+            want_final=True)
+    grid, _ = rr.rollout_grid(tables, torch.device("cpu"), n_blocks)
+    assert (grid.n_blocks, grid.cw) == (n_blocks, cw)
+    rows = obs.metrics().get("rollout_readout_rows_total")
+    assert rows.value(kernel="specialized_rollout", path=path) == (
+        12 // 4 * 3 + 5 * 20)
+    assert rows.value() == 12 // 4 * 3 + 5 * 20
