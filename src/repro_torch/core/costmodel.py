@@ -297,8 +297,8 @@ _PRIORS = {
     # choice turns on it: the backend gap is 3-385x.  No torch trial had
     # shift-add digits, so the torch shiftadd weight is the fit's starting
     # guess.  Crossovers that build other launches (128 and 256 against
-    # 64) measured within the host clock's spread, so the cold pick on the
-    # card leaves the crossover at its default (plan.autotune._cold_pick).
+    # 64) measured within the host clock's spread, so a cold cache on the
+    # card serves the default schedule (plan.autotune.resolve_schedule).
     "cuda": {
         # the per-step PyTorch loop: host-bound, paid per step (the fit
         # clipped macs to 0: the culled schedule has fewer MACs than the

@@ -28,11 +28,9 @@ _RUN_ARGTYPES = [
     _F, _F, _F, _F,          # one_minus_leak, leak, smax, recur_scale
     _P,                      # stream
 ]
-_READOUT_ARGTYPES = [_P, _I, _P, _P, _I, _I, _I, _I, _P]
 
 LIBRARY = CudaLibrary(
     pathlib.Path(__file__).resolve().parent / "csrc" / "rollout.cu",
     {"rollout_run": _RUN_ARGTYPES,
-     "rollout_occupancy": [_I, _I, ctypes.POINTER(_I)],
-     "rollout_readout": _READOUT_ARGTYPES},
+     "rollout_occupancy": [_I, _I, ctypes.POINTER(_I)]},
     headers=(COMMON_HEADER, HOPPER_HEADER))

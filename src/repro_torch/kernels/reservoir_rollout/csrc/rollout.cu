@@ -14,9 +14,7 @@
 //     rollout, folded int8 tiles (MM terms) plus unrolled shift-add digits
 //     (SA terms);
 //   * both compute the `y = x @ W_out` epilogue of the TPU kernels' bodies
-//     (specialized.py:142, reservoir_rollout.py:107) inside the launch;
-//     rollout_readout is that readout as a kernel of its own, for a
-//     (batch, dim) state.
+//     (specialized.py:142, reservoir_rollout.py:107) inside the launch.
 // B1's tables are MM terms with a plane shift and no shift-add digits;
 // B2's are folded MM terms (shift 0) and digits.
 //
@@ -147,7 +145,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 16;               // MMA M: batch rows of one tile
 constexpr int kBarBytes = 16;           // the mbarrier, padded
-constexpr int kReadoutThreads = 256;
 
 struct Params {
   const float* __restrict__ u;          // (T, B, I), unit stride over I
@@ -617,36 +614,6 @@ rollout_kernel(const Params p) {
   }
 }
 
-__global__ void readout_kernel(const float* __restrict__ x, int ld_x,
-                               const float* __restrict__ w_out,  // (dim, O)
-                               float* __restrict__ y, int ld_y,
-                               int dim, int out_dim) {
-  __shared__ float red[kReadoutThreads / 32];
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const float* xr = x + (size_t)b * ld_x;
-  for (int o = 0; o < out_dim; ++o) {
-    float p = 0.0f;
-    for (int r = threadIdx.x; r < dim; r += kReadoutThreads) {
-      p = fmaf(xr[r], w_out[(size_t)r * out_dim + o], p);
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      p += __shfl_down_sync(0xffffffffu, p, off);
-    }
-    if (lane == 0) red[warp] = p;
-    __syncthreads();
-    if (warp == 0) {
-      p = lane < kReadoutThreads / 32 ? red[lane] : 0.0f;
-      for (int off = 16; off > 0; off >>= 1) {
-        p += __shfl_down_sync(0xffffffffu, p, off);
-      }
-      if (lane == 0) y[(size_t)b * ld_y + o] = p;
-    }
-    __syncthreads();
-  }
-}
-
 template <bool INT8>
 int occupancy(int smem, int* blocks_per_sm) {
   static bool done = false;
@@ -726,14 +693,4 @@ extern "C" int rollout_run(
 extern "C" int rollout_occupancy(int int8_mode, int smem, int* blocks_per_sm) {
   return int8_mode ? occupancy<true>(smem, blocks_per_sm)
                    : occupancy<false>(smem, blocks_per_sm);
-}
-
-// Readout y = x . W_out for a (batch, dim) state, one block per row.
-extern "C" int rollout_readout(const float* x, int ld_x, const float* w_out,
-                               float* y, int ld_y, int batch, int dim,
-                               int out_dim, void* stream) {
-  readout_kernel<<<batch, kReadoutThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      x, ld_x, w_out, y, ld_y, dim, out_dim);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -2,8 +2,12 @@
 
 The offline lowering lives in :mod:`repro_torch.plan`: the reservoir matrix
 is frozen, so the reduction structure (which blocks exist, which digit
-plane-blocks are populated, how the columns band) is compiled once there
-and consumed here as device tables.  These wrappers only place the
+plane-blocks are populated) is compiled once there, unbanded, and
+flattened here into per-column term tables on the device
+(:func:`~.reservoir_rollout.build_tables`).  On the card the kernel cuts
+them into per-thread-block shares, and
+:func:`~.reservoir_rollout.plan_grid` decides from the card's shared
+memory whether they stay resident.  These wrappers only place the
 per-instance operands (w_in, w_out, the tables) on the device once and
 dispatch.
 """
@@ -17,8 +21,7 @@ from repro_torch.core.sparse import FixedMatrix
 from repro_torch.device import resolve_device
 from repro_torch.kernels.reservoir_rollout.reservoir_rollout import (
     build_tables, generic_schedules, reservoir_rollout)
-from repro_torch.plan import (DEFAULT_BATCH_TILE, DEFAULT_VMEM_BUDGET,
-                              ExecutionPlan, plan_for)
+from repro_torch.plan import DEFAULT_BATCH_TILE, ExecutionPlan, plan_for
 
 __all__ = ["FusedRollout"]
 
@@ -97,32 +100,27 @@ class RolloutOp:
 
 
 class FusedRollout(RolloutOp):
-    """Generic banded rollout (B1) for one frozen reservoir.
+    """Generic rollout (B1) for one frozen reservoir.
 
     Offline (init): take the shared :class:`~repro_torch.plan.ExecutionPlan`
-    (building it if handed a raw FixedMatrix), pick the banded rollout
-    layout for the mode and byte budget, and place its tables on the
-    device.  Online (``__call__``): :func:`reservoir_rollout` rolls the
-    whole (T, B) workload in one launch; with ``w_out`` attached the
-    readout is computed inside it after each (k-th) step.
+    (building it if handed a raw FixedMatrix), lower the mode's rollout
+    layout unbanded and place its tables on the device.  Online
+    (``__call__``): :func:`reservoir_rollout` rolls the whole (T, B)
+    workload in one launch; with ``w_out`` attached the readout is
+    computed inside it after each (k-th) step.
     """
 
     def __init__(self, source: FixedMatrix | ExecutionPlan, w_in, *,
                  leak: float = 1.0, mode: str = "fp32", state_bits: int = 8,
-                 w_out=None, vmem_budget: int | None = DEFAULT_VMEM_BUDGET,
-                 readout_every: int = 1, device=None):
+                 w_out=None, readout_every: int = 1, device=None):
         super().__init__(source, w_in, leak=leak, mode=mode,
                          state_bits=state_bits, w_out=w_out,
                          readout_every=readout_every, device=device)
-        self.layout = self.plan.rollout_layout(mode, vmem_budget=vmem_budget)
+        self.layout = self.plan.rollout_layout(mode, vmem_budget=None)
         self.n_terms = self.layout.n_terms
         self.tables = build_tables(
             generic_schedules(self.layout.band_plans()), self.layout.data,
             mode=mode, n_col_blocks=self.plan.nbc, device=self.device)
-
-    @property
-    def n_bands(self) -> int:
-        return self.layout.n_bands
 
     def _batch_tile(self, batch: int) -> int:
         # the TPU kernel has no batch tiling; rows per batch tile follow

@@ -19,8 +19,8 @@ of the paper's synthesis-time adder culling.  Two modes share one kernel:
 
 This module holds what both rollout kernels share — the host tables, their
 per-thread-block packing and grid choice, the launch of the persistent
-kernel (all T steps in one cooperative launch), the readout kernel's
-wrapper and the plain PyTorch twin of one step — and the B1 entry point
+kernel (all T steps in one cooperative launch, the readout fused) and the
+plain PyTorch twin of one step — and the B1 entry point
 :func:`reservoir_rollout` with its twin :func:`reservoir_rollout_plain`.
 A CUDA tensor goes through the kernel (``csrc/rollout.cu``) or raises; a
 CPU tensor takes the twin, the port's analogue of Pallas
@@ -39,9 +39,8 @@ import torch
 from repro_torch import obs
 from repro_torch.core.sparse import int_matmul_exact
 from repro_torch.kernels._build import check
-from repro_torch.kernels._launch import (MAX_SMEM, check_f32, on_cuda,
-                                         require_cuda, same_device, stream,
-                                         unit_stride)
+from repro_torch.kernels._launch import (MAX_SMEM, check_f32, require_cuda,
+                                         same_device, stream, unit_stride)
 from repro_torch.kernels.reservoir_rollout import _cuda
 from repro_torch.plan.specialize import MM
 
@@ -49,7 +48,7 @@ __all__ = ["BlockShares", "RolloutGrid", "RolloutTables", "build_tables",
            "generic_schedules", "launch_counts", "pack_blocks",
            "plain_recurrent_product", "plan_grid", "readout_path",
            "reservoir_rollout", "reservoir_rollout_plain", "rollout_grid",
-           "rollout_readout", "rollout_readout_plain", "smem_bytes"]
+           "rollout_readout_plain", "smem_bytes"]
 
 # The persistent kernel's geometry (csrc/rollout.cu).
 _MMA_ROWS = 16                # batch rows per tile: the MMA's M
@@ -381,46 +380,12 @@ def launch_counts(grid: RolloutGrid, steps: int, batch: int, b_tile: int
     return streamed, int(meta[:, 2].sum()) * steps * batch
 
 
-# -- readout kernel -----------------------------------------------------------
-def rollout_readout_plain(x: torch.Tensor, w_out: torch.Tensor,
-                          out: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain twin of :func:`rollout_readout`: ``x @ w_out``."""
-    y = x @ w_out
-    if out is None:
-        return y
-    out.copy_(y)
-    return out
-
-
-def rollout_readout(x: torch.Tensor, w_out: torch.Tensor,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
-    """``y = x @ W_out`` for a (B, dim) state, by the readout kernel on a
-    CUDA tensor (one thread block per row, fixed reduction order) or by
-    the twin on a CPU tensor.  The rollout kernels compute the same
-    readout inside their own launch (counted on ``fused_launches``)."""
-    if not on_cuda(x, w_out, out):
-        return rollout_readout_plain(x, w_out, out)
-    b, dim = x.shape
-    o = w_out.shape[1]
-    if out is None:
-        out = torch.empty((b, o), device=x.device)
-    check_f32(x, w_out, out)
-    if (not unit_stride(x, 1) or not unit_stride(out, 1)
-            or not w_out.is_contiguous()):
-        raise ValueError("rollout_readout needs row-major x, out and w_out")
-    if w_out.shape[0] != dim or out.shape != (b, o):
-        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w_out "
-                         f"{tuple(w_out.shape)}, out {tuple(out.shape)}")
-    rc = _cuda.LIBRARY.load().rollout_readout(
-        x.data_ptr(), x.stride(0), w_out.data_ptr(), out.data_ptr(),
-        out.stride(0), b, dim, o, stream(x.device))
-    check(rc, "rollout_readout")
-    rollout_readout.launches += 1
-    return out
-
-
-rollout_readout.launches = 0
-rollout_readout.fused_launches = 0
+# -- readout ------------------------------------------------------------------
+def rollout_readout_plain(x: torch.Tensor,
+                          w_out: torch.Tensor) -> torch.Tensor:
+    """The twin's readout ``y = x @ w_out`` of a (B, dim) state (the
+    kernel computes it inside the rollout launch)."""
+    return x @ w_out
 
 
 # -- shared checks ------------------------------------------------------------
@@ -490,7 +455,7 @@ def _launch_rollout(counted, u_seq, tables, w_in, x0, w_out=None, *,
                     want_final=False, final_out=None, n_blocks=None):
     """One cooperative launch of the persistent kernel for all T steps
     (counted on ``counted.launches``; with ``want_preds`` the readout is
-    computed inside it, counted on ``rollout_readout.fused_launches``;
+    computed inside it, counted on ``counted.fused_launches``;
     with metrics on, its :func:`launch_counts` too, and with predictions
     its readout steps x batch rows under the grid's :func:`readout_path`).
     The last step writes straight into the final-state buffer — the
@@ -533,7 +498,7 @@ def _launch_rollout(counted, u_seq, tables, w_in, x0, w_out=None, *,
     check(rc, name)
     counted.launches += 1
     if want_preds:
-        rollout_readout.fused_launches += 1
+        counted.fused_launches += 1
     obs.inc("kernel_launches_total", kernel=name)
     if obs.metrics() is not None:
         streamed, digits = launch_counts(grid, t_steps, b, b_tile)
@@ -702,4 +667,4 @@ def reservoir_rollout(u_seq: torch.Tensor, tables: RolloutTables,
                      w_in, x0, w_out, **kw)
 
 
-reservoir_rollout.launches = 0
+reservoir_rollout.launches = reservoir_rollout.fused_launches = 0

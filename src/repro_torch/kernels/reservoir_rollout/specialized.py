@@ -1,7 +1,7 @@
 """Plan-specialized rollout (B2): folded tiles, shift-add digits, batch tiles.
 
-The generic banded kernel (:mod:`.reservoir_rollout`) reduces one per-plane
-tile product per kept (plane, block).  This kernel consumes a
+The generic kernel (:mod:`.reservoir_rollout`) reduces one per-plane tile
+product per kept (plane, block).  This kernel consumes a
 :class:`repro_torch.plan.RolloutProgram` instead:
 
 * ``MM`` terms multiply a *folded* tile — the int8 digit planes of a block
@@ -13,15 +13,15 @@ tile product per kept (plane, block).  This kernel consumes a
   (at most 16 on the GPU, one MMA tile), which every thread block walks
   in turn for its own column slice.
 
-int8 terms accumulate in exact int32, so every schedule is bit-identical
-to the generic kernel; fp32 terms reduce in its order (on the card fixed
-partial sums over a block's warps and lanes, in the twin ascending
-rows).  The
-program's regime (``resident`` / ``pipelined``) changes only how columns
-group into bands, which only the plain twin walks: the CUDA kernel
-repacks every band's tiles into per-thread-block shares
-(:func:`~.reservoir_rollout.pack_blocks`) and keeps them in shared memory
-when they fit, whatever the regime.
+The program is lowered unbanded and flattened into per-column terms
+(:func:`~.reservoir_rollout.build_tables`), which both the CUDA kernel and
+the plain twin walk.  The kernel cuts them into per-thread-block shares
+(:func:`~.reservoir_rollout.pack_blocks`), and
+:func:`~.reservoir_rollout.plan_grid` decides from the card's shared
+memory whether the shares stay resident or stream each step.  int8 terms
+accumulate in exact int32, so every schedule is bit-identical to the
+generic kernel; fp32 terms reduce in its order (on the card fixed partial
+sums over a block's warps and lanes, in the twin ascending rows).
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ from repro_torch.core.sparse import FixedMatrix
 from repro_torch.kernels.reservoir_rollout.ops import RolloutOp
 from repro_torch.kernels.reservoir_rollout.reservoir_rollout import (
     RolloutTables, _dispatch, _plain_rollout, build_tables)
-from repro_torch.plan import (DEFAULT_BATCH_TILE, DEFAULT_VMEM_BUDGET,
-                              ExecutionPlan, specialize_rollout)
+from repro_torch.plan import (DEFAULT_BATCH_TILE, ExecutionPlan,
+                              specialize_rollout)
 
 __all__ = ["SpecializedRollout", "specialized_rollout",
            "specialized_rollout_plain"]
@@ -58,40 +58,31 @@ def specialized_rollout(u_seq: torch.Tensor, tables: RolloutTables,
                      tables, w_in, x0, w_out, **kw)
 
 
-specialized_rollout.launches = 0
+specialized_rollout.launches = specialized_rollout.fused_launches = 0
 
 
 class SpecializedRollout(RolloutOp):
     """Program-driven rollout for one frozen reservoir.
 
     Drop-in for :class:`..ops.FusedRollout` with the plan-specialized
-    lowering behind it: the regime, batch tiling and the folded/shift-add
-    schedule all come from :func:`repro_torch.plan.specialize_rollout`.
+    lowering behind it: the batch tiling and the folded/shift-add schedule
+    come from :func:`repro_torch.plan.specialize_rollout`.
     """
 
     def __init__(self, source: FixedMatrix | ExecutionPlan, w_in, *,
                  leak: float = 1.0, mode: str = "fp32", state_bits: int = 8,
-                 w_out=None, vmem_budget: int | None = DEFAULT_VMEM_BUDGET,
-                 readout_every: int = 1,
+                 w_out=None, readout_every: int = 1,
                  batch_tile_max: int = DEFAULT_BATCH_TILE,
                  crossover: int | None = None, device=None):
         super().__init__(source, w_in, leak=leak, mode=mode,
                          state_bits=state_bits, w_out=w_out,
                          readout_every=readout_every, device=device)
         self.program = specialize_rollout(
-            self.plan, mode, vmem_budget=vmem_budget, crossover=crossover,
+            self.plan, mode, vmem_budget=None, crossover=crossover,
             batch_tile_max=batch_tile_max)
         self.tables = build_tables(
             self.program.schedules, self.program.data, mode=mode,
             n_col_blocks=self.plan.nbc, device=self.device)
-
-    @property
-    def regime(self) -> str:
-        return self.program.regime
-
-    @property
-    def n_bands(self) -> int:
-        return self.program.n_bands
 
     def _batch_tile(self, batch: int) -> int:
         return self.program.batch_tiling(batch)[0]

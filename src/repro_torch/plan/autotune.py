@@ -30,8 +30,9 @@ three ways.  Its kernel takes at most 16 batch rows per tile, so a tile of
 32 is infeasible and dropped; it repacks every band into per-block
 shares whatever the budget, so its budget axis collapses to the default;
 and crossovers that fold the same planes keep one name.  No trial times
-one launch under several names.  Under the card's prior the cold pick
-chooses the backend and the batch tile only (see :func:`_cold_pick`).
+one launch under several names.  Under the card's prior a cold cache
+serves the default ``cuda`` schedule without pricing the others (see
+:func:`resolve_schedule`).
 
 Every candidate schedule gives the same results as every other (int8
 accumulates in exact int32, fp32 keeps ascending-row order), so tuning is
@@ -497,7 +498,8 @@ def resolve_schedule(plan: ExecutionPlan, mode: str, *,
 
     ``measure=False`` (engine construction) never launches or times
     anything: a cache hit replays the persisted winner, a miss falls back
-    to the analytic model's pick.  ``measure=True`` (explicit
+    to the analytic model's pick, which under the card's prior is the
+    default ``cuda`` schedule.  ``measure=True`` (explicit
     ``autotune_rollout``) runs the full loop on ``device`` and caches the
     measured winner, which subsequent engine constructions then inherit.
     An explicit ``backend`` restricts the search to that backend.
@@ -523,6 +525,16 @@ def resolve_schedule(plan: ExecutionPlan, mode: str, *,
             obs.inc("schedule_cache_requests_total", outcome="hit")
             return tuned
     model = _default_model(dev) if model is None else model
+    if not measure and model.platform == "cuda":
+        # the card's prior was fitted on trials whose budgets built one
+        # launch and whose crossovers the host clock could not tell apart
+        best = default_schedule(plan, mode, "cuda" if "cuda" in backends
+                                else backends[0])
+        pred = predict_cost(plan, best, batch, steps, model)
+        tuned = TunedSchedule(
+            schedule=best, batch=batch, steps=steps, predicted_s=pred,
+            default_predicted_s=pred, source="predicted", n_candidates=1)
+        return _resolved(cache, key, plan, mode, batch, hw, tuned)
     cands = candidate_schedules(plan, mode, backends)
     if not cands:
         cands = [default_schedule(plan, mode, backends[0])]
@@ -535,7 +547,7 @@ def resolve_schedule(plan: ExecutionPlan, mode: str, *,
     default_pred = predict_cost(plan, default, batch, steps, model)
 
     if not measure:
-        pred, best = _cold_pick(scored, plan, model)
+        pred, best = scored[0]
         tuned = TunedSchedule(
             schedule=best, batch=batch, steps=steps, predicted_s=pred,
             default_predicted_s=default_pred, source="predicted",
@@ -566,30 +578,19 @@ def resolve_schedule(plan: ExecutionPlan, mode: str, *,
             default_measured_s=default_meas, source="measured",
             n_candidates=len(cands),
             trials=tuple((s.as_dict(), p, m) for s, p, m in trials))
+    return _resolved(cache, key, plan, mode, batch, hw, tuned)
+
+
+def _resolved(cache: ScheduleCache, key: str, plan: ExecutionPlan,
+              mode: str, batch: int, hw: str,
+              tuned: TunedSchedule) -> TunedSchedule:
+    """Cache and pin a fresh decision, and record the miss."""
     cache.put(key, tuned)
     _pin_to_plan(plan, mode, batch, hw, tuned)
     obs.event("schedule_resolve", source=tuned.source, mode=mode,
               schedule=tuned.schedule.describe())
     obs.inc("schedule_cache_requests_total", outcome="miss")
     return tuned
-
-
-def _cold_pick(scored: list, plan: ExecutionPlan,
-               model: costmodel.RolloutCostModel) -> tuple:
-    """The analytic pick from ``scored`` (``(predicted, schedule)`` pairs
-    in ``(predicted, sort_key)`` order).  The cheapest, ties by
-    ``sort_key`` (the JAX package's rule), except under the card's prior:
-    it was fitted on trials whose crossovers the host clock could not tell
-    apart and whose budgets built one launch, so it picks the backend and
-    the batch tile only.  There the budget and crossover stay the
-    default's, and a tie goes to the default tile."""
-    if model.platform != "cuda":
-        return scored[0]
-    fixed = [(p, s) for p, s in scored
-             if s.vmem_budget == DEFAULT_VMEM_BUDGET
-             and s.crossover == default_crossover(plan.block)]
-    return min(fixed or scored, key=lambda t: (
-        t[0], t[1].batch_tile_max != DEFAULT_BATCH_TILE, t[1].sort_key()))
 
 
 def _pin_to_plan(plan: ExecutionPlan, mode: str, batch: int, hw: str,

@@ -81,9 +81,11 @@ class ReservoirEngine:
     (a :class:`~repro_torch.plan.autotune.Schedule` or
     :class:`~repro_torch.plan.autotune.TunedSchedule`) bypasses
     resolution; a schedule fills only the knobs the caller left unset.
-    ``device`` defaults to the params' device.  ``tenant`` is the
-    registry model name the engine serves (None outside a registry); it
-    threads through to the plan-cache tenant counters.
+    ``vmem_budget`` bands only the torch backend's culled int8 program:
+    the CUDA ops take no budget.  ``device`` defaults to the params'
+    device.  ``tenant`` is the registry model name the engine serves
+    (None outside a registry); it threads through to the plan-cache
+    tenant counters.
     """
 
     def __init__(self, params: ESNParams, *, backend: str = "auto",
@@ -163,7 +165,7 @@ class ReservoirEngine:
                 self.plan, params.w_in, leak=self.config.leak,
                 mode="int8" if self._int8 else "fp32",
                 state_bits=self.config.state_bits, w_out=self._w_out,
-                vmem_budget=self.vmem_budget, device=self.device, **kw)
+                device=self.device, **kw)
         else:
             self._build_torch()
 

@@ -12,8 +12,8 @@ where the port's backends are ``torch`` (the reference's ``xla``) and
   one budget, no batch tile above 16 and one name per launch;
 * a cold, predict-only resolution picks the reference's schedule renamed
   at the same predicted seconds, and ``resolve_backend`` gives ``torch``
-  wherever the reference gives ``xla``; under the card's prior it keeps
-  the default budget, crossover and (on a tie) tile;
+  wherever the reference gives ``xla``; under the card's prior it serves
+  the default ``cuda`` schedule and enumerates no candidate;
 * a measured tuning keeps the default among its trials, its winner no
   worse than it, and the winner's engine serves the default's bits
   (int8, batch >= 2: C-ref-1, C-port-1);
@@ -41,6 +41,7 @@ from repro.serve import ReservoirEngine as JEngine
 from repro_torch import obs
 from repro_torch.core import costmodel as tcm
 from repro_torch.core import esn as tesn
+from repro_torch.core.sparse import FixedMatrix, random_sparse_matrix
 from repro_torch.plan import autotune as tat
 from repro_torch.plan import plan_for, specialize_summary
 from repro_torch.plan.autotune import (BACKENDS, Schedule, ScheduleCache,
@@ -239,10 +240,9 @@ def test_cold_resolution_picks_reference_schedule(mode, es, batch, steps):
 @pytest.mark.parametrize("batch,steps", [(8, 8), (16, 32)])
 def test_card_prior_cold_pick_keeps_the_default_knobs(mode, es, batch,
                                                       steps):
-    """Under the card's prior the cold pick chooses the backend and the
-    tile only: the budget and crossover stay the default's, and at batch
-    8, where tiles 8 and 16 price the same, the tie goes to 16 (the tile
-    the served pool and the kernel timings use)."""
+    """Under the card's prior the cold pick is the default ``cuda``
+    schedule, and no candidate with the default budget and crossover is
+    predicted cheaper (at batch 8 tiles 8 and 16 price the same)."""
     _jp, tp = _plans(mode=mode, es=es)
     km = _kmode(mode)
     prior = tcm.default_rollout_cost_model("cuda")
@@ -257,6 +257,38 @@ def test_card_prior_cold_pick_keeps_the_default_knobs(mode, es, batch,
                 and s.crossover == got.schedule.crossover):
             assert predict_cost(tp, s, batch, steps, prior) >= \
                 got.predicted_s
+
+
+@pytest.mark.parametrize("mode", ["fp32", "int8"])
+@pytest.mark.parametrize("dim,block,es", [(128, 32, 0.85), (1024, 128, 0.95)])
+def test_card_prior_cold_resolution_enumerates_no_candidate(
+        monkeypatch, mode, dim, block, es):
+    """Under the card's prior a cold resolution serves the default
+    ``cuda`` schedule, priced alone, without enumerating candidates;
+    it is cached and pinned as any resolution is."""
+    rng = np.random.default_rng(0)
+    plan = plan_for(FixedMatrix.compile(
+        random_sparse_matrix(dim, dim, es, rng) * 0.05, weight_bits=8,
+        mode="csd", block=block, rng=rng))
+
+    def refuse(*_a, **_k):
+        raise AssertionError("candidate_schedules called")
+
+    monkeypatch.setattr(tat, "candidate_schedules", refuse)
+    prior = tcm.default_rollout_cost_model("cuda")
+    cache = ScheduleCache()
+    got = resolve_schedule(plan, mode, cache=cache, model=prior, device=CPU)
+    want = default_schedule(plan, mode, "cuda")
+    assert got.schedule == want
+    assert (got.source, got.n_candidates, got.measured_s) == (
+        "predicted", 1, None)
+    assert got.predicted_s == got.default_predicted_s == predict_cost(
+        plan, want, tat.TUNE_BATCH, tat.TUNE_STEPS, prior)
+    assert len(cache) == 1 and cache.misses == 1
+    again = resolve_schedule(plan, mode, cache=cache, model=prior,
+                             device=CPU)
+    assert again is got and cache.hits == 1
+    assert "autotuned[" + mode in plan.describe()
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -32,14 +32,14 @@ from repro_torch.kernels.bitplane_gemv.bitplane_gemv import (
 from repro_torch.kernels.bitplane_gemv.ops import BitplaneGemv
 from repro_torch.kernels.reservoir_rollout.ops import FusedRollout
 from repro_torch.kernels.reservoir_rollout.reservoir_rollout import (
-    _launch_rollout, readout_path, reservoir_rollout, reservoir_rollout_plain,
-    rollout_grid, rollout_readout)
+    _launch_rollout, build_tables, pack_blocks, readout_path,
+    reservoir_rollout, reservoir_rollout_plain, rollout_grid)
 from repro_torch.kernels.reservoir_rollout.specialized import (
     SpecializedRollout, specialized_rollout, specialized_rollout_plain)
 from repro_torch.kernels.reservoir_step.ops import FusedReservoir
 from repro_torch.kernels.reservoir_step.reservoir_step import (
     reservoir_step, reservoir_step_plain)
-from repro_torch.plan import specialize_summary
+from repro_torch.plan import specialize_rollout, specialize_summary
 
 pytestmark = pytest.mark.gpu
 
@@ -64,10 +64,10 @@ def test_specialized_kernel_matches_twin(cuda, mode):
                         device=cuda)
     x0 = torch.zeros((5, 256), device=cuda)
     kw = dict(want_states=True, want_preds=True, want_final=True)
-    before = specialized_rollout.launches, rollout_readout.launches
+    before = specialized_rollout.launches, specialized_rollout.fused_launches
     s, p, f = op(u, x0, **kw)
     assert (specialized_rollout.launches - before[0],
-            rollout_readout.launches - before[1]) == (1, 0)
+            specialized_rollout.fused_launches - before[1]) == (1, 1)
     ps, pp, pf = specialized_rollout_plain(
         u, op.tables, op.w_in, x0, op.w_out, leak=op.leak, smax=op.smax,
         recur_scale=op.recur_scale, **kw)
@@ -107,9 +107,9 @@ def _pipelined_budget(plan, mode):
 
 def _run(fn, op, u, x0, b_tile, k, n_blocks=None, **kw):
     """One call of B1 or B2 on the op's tables: (outputs, launches made,
-    standalone readout launches made).  An explicit ``n_blocks`` launches
-    below the entry point, on that grid."""
-    before = fn.launches, rollout_readout.launches
+    launches made with the readout fused).  An explicit ``n_blocks``
+    launches below the entry point, on that grid."""
+    before = fn.launches, fn.fused_launches
     kw.update(leak=op.leak, smax=op.smax, recur_scale=op.recur_scale,
               b_tile=b_tile, readout_every=k)
     if n_blocks is None:
@@ -117,7 +117,7 @@ def _run(fn, op, u, x0, b_tile, k, n_blocks=None, **kw):
     else:
         out = _launch_rollout(fn, u, op.tables, op.w_in, x0, op.w_out,
                               n_blocks=n_blocks, **kw)
-    return out, fn.launches - before[0], rollout_readout.launches - before[1]
+    return out, fn.launches - before[0], fn.fused_launches - before[1]
 
 
 @pytest.mark.parametrize("batch", [1, 5, 16, 24])
@@ -126,8 +126,10 @@ def _run(fn, op, u, x0, b_tile, k, n_blocks=None, **kw):
 def test_rollout_kernels_one_launch_match_twins(cuda, mode, regime, batch):
     """B1 and B2 against their twins over T in {1, 7, 33} with a readout
     every step and T in {8, 32} with one every 4 steps; batch 24 is two
-    batch tiles.  One launch per call, no readout launch; int8 exact and
-    B1 == B2; a donated carry at T = 1 and T > 1 equals one shot."""
+    batch tiles.  One launch per call, the readout fused; int8 exact and
+    B1 == B2; a donated carry at T = 1 and T > 1 equals one shot.  B2
+    takes no band budget: its shares are byte-identical to those of the
+    regime's lowering."""
     fm = _sparse_fm()
     plan = fm.plan()
     rng = np.random.default_rng(batch)
@@ -135,10 +137,17 @@ def test_rollout_kernels_one_launch_match_twins(cuda, mode, regime, batch):
     w_out = rng.uniform(-0.1, 0.1, (256, 2)).astype(np.float32)
     budget = None if regime == "resident" else _pipelined_budget(plan, mode)
     b2 = SpecializedRollout(plan, w_in, leak=0.7, mode=mode, w_out=w_out,
-                            vmem_budget=budget, device=cuda)
+                            device=cuda)
     b1 = FusedRollout(plan, w_in, leak=0.7, mode=mode, w_out=w_out,
                       device=cuda)
-    assert b2.regime == regime
+    prog = specialize_rollout(plan, mode, vmem_budget=budget)
+    assert prog.regime == regime and b2.program.vmem_budget is None
+    grid, _ = rollout_grid(b2.tables, cuda)
+    shares = pack_blocks(build_tables(prog.schedules, prog.data, mode=mode,
+                                      n_col_blocks=plan.nbc, device=cuda),
+                         grid.n_blocks)
+    assert shares.blob.tobytes() == grid.shares.blob.tobytes()
+    assert np.array_equal(shares.meta, grid.shares.meta)
     assert mode == "fp32" or b2.tables.n_digits > 0
     tol = 0.0 if mode == "int8" else 1e-4
     kw = dict(want_states=True, want_preds=True, want_final=True)
@@ -154,7 +163,7 @@ def test_rollout_kernels_one_launch_match_twins(cuda, mode, regime, batch):
                                b1)):
             b_tile = op._batch_tile(batch)
             (s, p, f), n, ro = _run(fn, op, u, x0, b_tile, k, **kw)
-            assert (n, ro) == (1, 0)
+            assert (n, ro) == (1, 1)
             ps, pp, pf = plain(u, op.tables, op.w_in, x0, op.w_out,
                                leak=op.leak, smax=op.smax,
                                recur_scale=op.recur_scale, readout_every=k,
@@ -211,7 +220,7 @@ def test_rollout_kernels_stream_or_keep_tiles(cuda, mode, n_blocks):
         if fn is reservoir_rollout:
             assert grid.resident is (n_blocks == 128)
         (s, p), n, ro = _run(fn, op, u, x0, 16, 1, n_blocks=n_blocks, **kw)
-        assert (n, ro) == (1, 0)
+        assert (n, ro) == (1, 1)
         ps, pp = plain(u, op.tables, op.w_in, x0, op.w_out, leak=op.leak,
                        smax=op.smax, recur_scale=op.recur_scale, **kw)
         torch.cuda.synchronize()
@@ -288,13 +297,13 @@ def test_fp32_rollout_rows_independent_of_batch(cuda, cls, n_blocks):
                          dtype=torch.float32, device=cuda)
     kw = dict(want_states=True, want_preds=True, want_final=True)
     (s, p, f), n, ro = _run(fn, op, u, x0, b, 1, n_blocks=n_blocks, **kw)
-    assert (n, ro) == (1, 0)
+    assert (n, ro) == (1, 1)
     rows = [(i, i + 1) for i in range(b)] + [(0, 2), (2, 5), (5, 10),
                                              (10, 16)]
     for lo, hi in rows:
         (s1, p1, f1), n, ro = _run(fn, op, u[:, lo:hi], x0[lo:hi], hi - lo,
                                    1, n_blocks=n_blocks, **kw)
-        assert (n, ro) == (1, 0)
+        assert (n, ro) == (1, 1)
         assert torch.equal(s1, s[:, lo:hi])
         assert torch.equal(p1, p[:, lo:hi])
         assert torch.equal(f1, f[lo:hi])
@@ -313,7 +322,7 @@ def test_fused_readout_tree_is_repeatable(cuda, mode, n_blocks, cw):
     """The fused readout's pairwise tree over a block's cw columns, in
     registers (cw 8, 16, 32) and through shared memory (cw 64), on
     explicit grids at dim 256, block 128, two outputs: predictions within
-    1e-4 of the twin, one launch and no readout launch per call, and the
+    1e-4 of the twin, one launch with its readout fused per call, and the
     same bits in two runs, for rows launched alone (batch 1) or 16
     together, and for T split into two chunks that carry the state.  In
     int8 B1's predictions equal B2's."""
@@ -337,7 +346,7 @@ def test_fused_readout_tree_is_repeatable(cuda, mode, n_blocks, cw):
     def run(u, x0, fn=specialized_rollout, op=b2):
         (p, f), n, ro = _run(fn, op, u, x0, u.shape[1], 1,
                              n_blocks=n_blocks, **kw)
-        assert (n, ro) == (1, 0)
+        assert (n, ro) == (1, 1)
         return p, f
 
     p, _f = run(u, x0)
@@ -408,7 +417,7 @@ def test_esn4096_default_grid_matches_twin(cuda, batch):
     kw = dict(want_states=True, want_preds=True, want_final=True)
     (s, p, f), n, ro = _run(specialized_rollout, op, u, x0,
                             op._batch_tile(batch), 1, **kw)
-    assert (n, ro) == (1, 0)
+    assert (n, ro) == (1, 1)
     ps, pp, pf = specialized_rollout_plain(
         u, op.tables, op.w_in, x0, op.w_out, leak=op.leak, smax=op.smax,
         recur_scale=op.recur_scale, **kw)
@@ -902,8 +911,8 @@ def _card_mesh(cuda, n):
 def test_sharded_engine_equals_single_on_the_card(cuda, mode, kw, batch):
     """(a) 4 shards (batch 13 pads to 16) against the single-device engine:
     states and fused-readout predictions bit for bit (the kernels compute
-    every row alike whatever the batch), one launch per shard, no
-    standalone readout launch."""
+    every row alike whatever the batch), one launch per shard, the
+    readout fused into it."""
     from repro_torch.dist import ShardedReservoirEngine
     from repro_torch.serve import ReservoirEngine
     p = _esn(mode, cuda)
@@ -916,10 +925,11 @@ def test_sharded_engine_equals_single_on_the_card(cuda, mode, kw, batch):
     u = torch.randn((batch, 24, 1), generator=gen).to(cuda)
     x0 = (0.3 * torch.randn((batch, 256), generator=gen)).to(cuda)
     for want_states in (True, False):
-        before = fn.launches, rollout_readout.launches
+        before = fn.launches, fn.fused_launches
         got, xf = sharded.run_segment(u, x0, want_states=want_states)
+        fused = 0 if want_states else 4           # predictions: fused
         assert (fn.launches - before[0],
-                rollout_readout.launches - before[1]) == (4, 0)
+                fn.fused_launches - before[1]) == (4, fused)
         want, wxf = single.run_segment(u, x0, want_states=want_states)
         torch.cuda.synchronize()
         assert torch.equal(got, want) and torch.equal(xf, wxf)

@@ -52,6 +52,9 @@ _PALLAS = ("Pallas-only argument: the Pallas kernel's interpret mode, "
            "block shape or operand layout; the CUDA entry takes the device "
            "tables its launch reads")
 _RENAME = "renamed: the torch backend's schedule is torch_schedule"
+_BANDS = ("the band axis of the Pallas grid; the CUDA kernel repacks every "
+          "band into per-block shares and plan_grid decides residency from "
+          "the card's shared memory")
 
 
 def _params_of(fn: str, *names) -> set:
@@ -76,18 +79,23 @@ EXCEPTIONS = {
         _PALLAS),
     "kernels/bitplane_gemv/ops.py": dict.fromkeys(_params_of(
         "BitplaneGemv", "block_c", "block_r", "interpret"), _PALLAS),
-    "kernels/reservoir_rollout/ops.py": dict.fromkeys(
-        ["FusedRollout(interpret=)"], _PALLAS),
+    "kernels/reservoir_rollout/ops.py": {
+        "FusedRollout(interpret=)": _PALLAS,
+        **dict.fromkeys(["FusedRollout(vmem_budget=)", "FusedRollout.n_bands"],
+                        _BANDS)},
     "kernels/reservoir_rollout/reservoir_rollout.py": dict.fromkeys(
         _params_of("reservoir_rollout", "band_plans", "block", "interpret",
                    "leak", "mode", "readout_every", "recur_scale", "smax",
                    "w_data", "want_final", "want_preds", "want_states"),
         _PALLAS),
-    "kernels/reservoir_rollout/specialized.py": dict.fromkeys(
-        ["SpecializedRollout(interpret=)", *_params_of(
+    "kernels/reservoir_rollout/specialized.py": {
+        **dict.fromkeys(["SpecializedRollout(interpret=)", *_params_of(
             "specialized_rollout", "b_tile", "block", "interpret", "leak",
             "mode", "readout_every", "recur_scale", "schedules", "smax",
             "w_data", "want_final", "want_preds", "want_states")], _PALLAS),
+        **dict.fromkeys(["SpecializedRollout(vmem_budget=)",
+                         "SpecializedRollout.regime",
+                         "SpecializedRollout.n_bands"], _BANDS)},
     "kernels/reservoir_step/ops.py": dict.fromkeys(_params_of(
         "FusedReservoir", "block", "interpret"), _PALLAS),
     "kernels/reservoir_step/reservoir_step.py": dict.fromkeys(_params_of(

@@ -15,7 +15,9 @@ throughout (the reference's batch-1 rows may differ by an ulp, C-ref-1).
 * The CUDA kernel's host side: each thread block's packed share (column
   slice, bytes, digits) against a direct computation from the tables, the
   shares decoded by the m16n8k32 fragment layout give the exact recurrent
-  product, and the grid and residency choice at LARGE_1024.
+  product, and the grid and residency choice at LARGE_1024.  The port's
+  ops take no band budget: the shares of a program lowered at any budget
+  are byte-identical to the unbanded one's.
 """
 
 import jax
@@ -36,11 +38,11 @@ from repro_torch.kernels.reservoir_rollout.ops import FusedRollout
 from repro_torch.kernels.reservoir_rollout.ref import (rollout_fp32_ref,
                                                        rollout_int8_ref)
 from repro_torch.kernels.reservoir_rollout.reservoir_rollout import (
-    build_tables, check_operands, pack_blocks, plain_recurrent_product,
-    plan_grid, reservoir_rollout, rollout_readout, smem_bytes)
+    build_tables, check_operands, generic_schedules, pack_blocks,
+    plain_recurrent_product, plan_grid, reservoir_rollout, smem_bytes)
 from repro_torch.kernels.reservoir_rollout.specialized import (
     SpecializedRollout, specialized_rollout)
-from repro_torch.plan import plan_for
+from repro_torch.plan import DEFAULT_VMEM_BUDGET, plan_for, specialize_rollout
 from repro_torch.plan.specialize import MM, SA
 
 
@@ -75,11 +77,13 @@ REGIMES = ("resident", "pipelined")
 TOL = 1e-5
 
 _PAIRS = {}
+_PORT = {}
 
 
 def _pair(esn_mode, regime):
     """(reference generic, reference specialized, port generic, port
-    specialized) rollout ops for one mode/regime, on identical weights."""
+    specialized) rollout ops for one mode/regime, on identical weights.
+    The port's ops take no budget: one pair serves both regimes."""
     key = (esn_mode, regime)
     if key not in _PAIRS:
         digit = "pn" if esn_mode == "int8-pn" else "csd"
@@ -89,21 +93,26 @@ def _pair(esn_mode, regime):
         jfm = JFixedMatrix.compile(j_random_sparse(DIM, DIM, 0.9, rng) * 0.05,
                                    weight_bits=8, mode=digit, block=BLOCK,
                                    rng=rng)
-        rng = np.random.default_rng(0)
-        tfm = FixedMatrix.compile(random_sparse_matrix(DIM, DIM, 0.9, rng)
-                                  * 0.05, weight_bits=8, mode=digit,
-                                  block=BLOCK, rng=rng)
         rng = np.random.default_rng(7)
         w_in = rng.uniform(-0.5, 0.5, (4, DIM)).astype(np.float32)
         w_out = rng.uniform(-0.1, 0.1, (DIM, 4)).astype(np.float32)
         kw = dict(leak=0.7, mode=kmode, w_out=w_out)
+        if esn_mode not in _PORT:
+            rng = np.random.default_rng(0)
+            tfm = FixedMatrix.compile(random_sparse_matrix(DIM, DIM, 0.9, rng)
+                                      * 0.05, weight_bits=8, mode=digit,
+                                      block=BLOCK, rng=rng)
+            _PORT[esn_mode] = (
+                FusedRollout(plan_for(tfm), w_in, device="cpu", **kw),
+                SpecializedRollout(plan_for(tfm), w_in, batch_tile_max=8,
+                                   device="cpu", **kw))
         ops = (JFused(j_plan_for(jfm), w_in, **kw),
                JSpecialized(j_plan_for(jfm), w_in, vmem_budget=budget,
                             batch_tile_max=8, **kw),
-               FusedRollout(plan_for(tfm), w_in, device="cpu", **kw),
-               SpecializedRollout(plan_for(tfm), w_in, vmem_budget=budget,
-                                  batch_tile_max=8, device="cpu", **kw))
-        assert ops[1].regime == ops[3].regime == regime
+               *_PORT[esn_mode])
+        assert ops[1].regime == regime
+        assert ops[3].program.vmem_budget is None
+        assert ops[2].layout.vmem_budget is None
         _PAIRS[key] = ops
     return _PAIRS[key]
 
@@ -219,12 +228,13 @@ def test_cpu_runs_twins_without_building_or_counting():
     """On CPU tensors the wrappers run the twins: nothing is compiled and
     no kernel launch is counted."""
     _j, _js, t_gen, t_spec = _pair("int8-csd", "resident")
-    before = (reservoir_rollout.launches, specialized_rollout.launches,
-              rollout_readout.launches)
+    counters = lambda: tuple(                                # noqa: E731
+        (fn.launches, fn.fused_launches)
+        for fn in (reservoir_rollout, specialized_rollout))
+    before = counters()
     t_gen(torch.as_tensor(_inputs(batch=2, t=2)), want_preds=True)
     t_spec(torch.as_tensor(_inputs(batch=2, t=2)), want_preds=True)
-    assert (reservoir_rollout.launches, specialized_rollout.launches,
-            rollout_readout.launches) == before
+    assert counters() == before
     assert not _cuda.LIBRARY.loaded
 
 
@@ -453,6 +463,52 @@ def test_fp32_lane_partials_at_paper_baseline(cls):
         shares = pack_blocks(tables, 7 * slices)
         np.testing.assert_allclose(_replay_f32_lanes(tables, shares, x),
                                    want, rtol=0, atol=1e-5)
+
+
+def _pipelining(lower):
+    """``lower(budget) -> (n_bands, tables)`` at the smallest budget of
+    whole double-buffered tiles that pipelines."""
+    for n in range(1, 256):
+        try:
+            n_bands, tables = lower(2 * n * BLOCK * BLOCK * 4)
+        except ValueError:
+            continue                    # a column's tiles overflow the band
+        if n_bands > 1:
+            return n_bands, tables
+    raise AssertionError("no budget pipelines")
+
+
+@pytest.mark.parametrize("kernel", ["generic", "specialized"])
+@pytest.mark.parametrize("mode", ["fp32", "int8"])
+def test_band_budget_leaves_the_kernels_shares_unchanged(mode, kernel):
+    """Every thread block's share and its meta, what the CUDA kernel
+    reads, are byte-identical whether the program was lowered unbanded,
+    at the default budget or at a budget that pipelines: the budget only
+    groups columns into bands, and the shares are cut per column."""
+    rng = np.random.default_rng(0)
+    plan = plan_for(FixedMatrix.compile(
+        random_sparse_matrix(DIM, DIM, 0.9, rng) * 0.05, weight_bits=8,
+        mode="csd", block=BLOCK, rng=rng))
+
+    def lower(budget):
+        if kernel == "generic":
+            lay = plan.rollout_layout(mode, vmem_budget=budget)
+            sched, data, n_bands = (generic_schedules(lay.band_plans()),
+                                    lay.data, lay.n_bands)
+        else:
+            prog = specialize_rollout(plan, mode, vmem_budget=budget)
+            sched, data, n_bands = prog.schedules, prog.data, prog.n_bands
+        return n_bands, build_tables(sched, data, mode=mode,
+                                     n_col_blocks=plan.nbc, device="cpu")
+
+    n_bands, want = lower(None)
+    assert n_bands == 1
+    for _n_bands, got in (lower(DEFAULT_VMEM_BUDGET), _pipelining(lower)):
+        for slices in (1, 8):
+            a = pack_blocks(want, plan.nbc * slices)
+            b = pack_blocks(got, plan.nbc * slices)
+            assert a.blob.tobytes() == b.blob.tobytes()
+            np.testing.assert_array_equal(a.meta, b.meta)
 
 
 def test_block_shares_carry_shift_add_digits():
