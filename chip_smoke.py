@@ -3168,12 +3168,13 @@ class Smoke:
         for name, (op, _plain, _fn) in ops.items():
             grid, _ = rollout_grid(op.tables, self.dev)
             print(f"  {name} grid: {grid.n_blocks} blocks of {grid.cw} "
-                  f"columns, share {grid.share_bytes} B per block, "
-                  f"{'resident' if grid.resident else 'streamed'}, "
-                  f"{grid.smem} B shared memory per block")
+                  f"columns, {grid.form} form, share {grid.share_bytes} B "
+                  f"per block, {'resident' if grid.resident else 'streamed'}"
+                  f", {grid.smem} B shared memory per block")
             extras[name] = dict(
-                n_blocks=grid.n_blocks, share_bytes=grid.share_bytes,
-                resident=grid.resident, smem_bytes=grid.smem)
+                n_blocks=grid.n_blocks, form=grid.form,
+                share_bytes=grid.share_bytes, resident=grid.resident,
+                smem_bytes=grid.smem)
         # in turns (B2, B1, B1, B2): the minimum of each kernel's two runs,
         # per step, for one launch of T steps
         runs = {(name, t): [] for name in ops for t in (32, 64)}

@@ -15,7 +15,7 @@ __all__ = ["LIBRARY"]
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _RUN_ARGTYPES = [
-    _I,                      # int8_mode
+    _I,                      # form: 0 fp32, 1 int8 dense (MMA), 2 int8 lists
     _P, _L, _L,              # u, its T and B strides
     _P, _P, _P,              # w_in, w_out, x0
     _P, _P, _P,              # states, preds, final_state

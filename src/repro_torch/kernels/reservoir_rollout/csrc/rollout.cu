@@ -38,7 +38,8 @@
 //   * Resident tiles.  The wrapper packs each block's share -- its column
 //     block's MM term list (row block, shift), its `cw` columns of every
 //     MM term's tile (laid out as m16n8k32 B fragments in int8 mode) and
-//     its SA digits -- into one contiguous blob; at the start of the
+//     its SA digits; or, in the int8 list form, its columns' folded
+//     (row, weight) lists -- into one contiguous blob; at the start of the
 //     launch the block copies it into shared memory with one bulk copy
 //     (cp.async.bulk + mbarrier) and keeps it for all T steps.  When a
 //     block's share does not fit (a larger plan, fewer blocks) the whole
@@ -56,13 +57,24 @@
 //     int32 product by its plane shift, and adds its sums into a shared
 //     int32 accumulator with integer atomics; SA digits scatter
 //     +-(xq << w) into the same accumulator.  int32 sums
-//     are exact in any order.  fp32 MM terms stay on CUDA cores (IEEE
-//     fp32 FMAs, no TF32) and use every thread: the block's rows are
-//     flattened to q = term * bk + row (terms in schedule order) and each
-//     8-column group's rows split into W = max(1, 8 / groups) contiguous
-//     ranges, one warp each.  Lane (column l % 8, kq = l / 8) sums rows
-//     kq, kq + 4, ... of its range with one FMA chain per batch row, so a
-//     weight is read once for the whole batch tile; the 4 lanes of a
+//     are exact in any order.  A sparse int8 table takes the list form
+//     instead (LISTS; pack_blocks chooses it from the table): each column
+//     is one list of (state row, weight) words whose weight folds every
+//     MM term's element << shift and every digit of that (row, column),
+//     so a 98 %-sparse column costs its ~80 nonzeros, not a dense tile's
+//     128 rows per row block.  The column's L = list_lanes(cw) lanes each
+//     sum entries l, l + L, ... as xq * weight in int32 for every batch
+//     row of the tile (a weight read once for the tile), the lanes meet
+//     in __shfl_xor_sync levels, and the first stores the column's sums
+//     into the accumulator with plain stores: no zero-fill of it and no
+//     __syncthreads after that, no atomics, no digit scatter.  The int32
+//     sums are the MMA path's, exactly.  fp32 MM terms stay on CUDA
+//     cores (IEEE fp32 FMAs, no TF32) and use every thread: the block's
+//     rows are flattened to q = term * bk + row (terms in schedule order)
+//     and each 8-column group's rows split into W = max(1, 8 / groups)
+//     contiguous ranges, one warp each.  Lane (column l % 8, kq = l / 8)
+//     sums rows kq, kq + 4, ... of its range with one FMA chain per batch
+//     row, so a weight is read once for the whole batch tile; the 4 lanes of a
 //     column meet in a butterfly over kq, and the epilogue adds the W
 //     warps' sums in ascending order.  An output's sum order depends on
 //     cw, the block's term count and bk alone -- never on the batch, the
@@ -124,6 +136,9 @@
 // streamed); the readout adds 0.07-0.46 us to a step without it.  Summed
 // by one thread from xkeep after an extra __syncthreads, it took 3.33 /
 // 3.77 / 3.87, 3.91-3.97 / 4.84 / 6.93 and 9.07-9.14 / 10.86 / 14.26 us.
+// In the list form (8 KiB of words a block, resident, same card and
+// clock) dim 4,096 at 2 % nonzeros takes 3.32 / 5.15 / 8.04 us a step at
+// batch 1 / 4 / 16 against the dense form's 8.72 / 10.45 / 13.57.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -278,6 +293,94 @@ __device__ __forceinline__ void product_f32(const float* xs, int ldxf,
   }
 }
 
+// Lanes that share one column's list: the largest power of two L with
+// L * cw <= kThreads (1 when cw exceeds them; the columns then take
+// several passes).  _list_lanes in reservoir_rollout.py.
+__device__ __forceinline__ int list_lanes(int cw) {
+  int lanes = 1;
+  while (2 * lanes * cw <= kThreads) lanes <<= 1;
+  return lanes;
+}
+
+// One level of a list column's lane sum, by recursive halving: the lane
+// holds C sums of rows row0 .. row0 + C - 1, keeps the upper half when
+// its bit s is set (the lower half otherwise) and adds its partner's sums
+// of that half: C / 2 shuffles, all indices fixed at compile time.
+template <int C>
+__device__ __forceinline__ void halve(uint32_t* acc, int l, int s,
+                                      unsigned mask, int& row0) {
+  const bool up = (l & s) != 0;
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) {
+    const uint32_t lo = acc[i], hi = acc[i + C / 2];
+    acc[i] = (up ? hi : lo) + __shfl_xor_sync(mask, up ? lo : hi, s);
+  }
+  if (up) row0 += C / 2;
+}
+
+// The list form's int32 product of one batch tile, rows < NB of the
+// staged int8 state xs, into acc_s[r * cw + j] for rows r < bt.  Column
+// j's word (i, l) -- its entry i * lanes + l, row in bits 0-15 and the
+// signed weight in bits 16-31 -- is words[(i * cw + j) * lanes + l], so
+// the block's threads read consecutive words; padding words are 0.  The
+// column's lanes then meet by recursive halving (halve: NB / 2 + NB / 4
+// + ... shuffles, not NB per level); once a lane holds one row the levels
+// left add it whole, and the lanes whose bits above NB's are 0 store
+// their rows.  Sums wrap modulo 2^32 as the MMA path's do.  Rows bt ..
+// NB - 1 of xs hold stale values whose sums are not stored.
+template <int NB>
+__device__ __forceinline__ void product_lists(const unsigned char* xs,
+                                              int ldx, const uint32_t* words,
+                                              int per_lane, int cw, int lanes,
+                                              int bt, int* acc_s, int tid) {
+  const int l = tid & (lanes - 1);
+  const int lane = tid & 31;
+  // the column's lanes, an aligned group of its warp
+  const unsigned mask =
+      lanes == 32 ? 0xffffffffu
+                  : ((1u << lanes) - 1u) << (lane & ~(lanes - 1));
+  const int stride = cw * lanes;
+  for (int j = tid / lanes; j < cw; j += kThreads / lanes) {
+    uint32_t acc[NB];
+#pragma unroll
+    for (int r = 0; r < NB; ++r) acc[r] = 0u;
+    const uint32_t* w = words + j * lanes + l;
+#pragma unroll 4
+    for (int i = 0; i < per_lane; ++i) {
+      const uint32_t e = w[(size_t)i * stride];
+      const unsigned char* xr = xs + (e & 0xffffu);
+      const int wt = static_cast<int>(e) >> 16;
+#pragma unroll
+      for (int r = 0; r < NB; ++r) {
+        acc[r] += static_cast<uint32_t>(
+            static_cast<int>(static_cast<signed char>(xr[r * ldx])) * wt);
+      }
+    }
+    int row0 = 0, held = NB, s = 1;
+    if constexpr (NB >= 16) {
+      if (s < lanes) { halve<16>(acc, l, s, mask, row0); held = 8; s <<= 1; }
+    }
+    if constexpr (NB >= 8) {
+      if (s < lanes) { halve<8>(acc, l, s, mask, row0); held = 4; s <<= 1; }
+    }
+    if constexpr (NB >= 4) {
+      if (s < lanes) { halve<4>(acc, l, s, mask, row0); held = 2; s <<= 1; }
+    }
+    if constexpr (NB >= 2) {
+      if (s < lanes) { halve<2>(acc, l, s, mask, row0); held = 1; s <<= 1; }
+    }
+    for (; s < lanes; s <<= 1) acc[0] += __shfl_xor_sync(mask, acc[0], s);
+    if ((l & ~(NB - 1)) == 0) {
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        if (i < held && row0 + i < bt) {
+          acc_s[(row0 + i) * cw + j] = static_cast<int>(acc[i]);
+        }
+      }
+    }
+  }
+}
+
 template <bool INT8>
 __device__ __forceinline__ void store_work(unsigned char* buf, int ldx, int b,
                                            int col, float v, float smax) {
@@ -364,7 +467,9 @@ __device__ __forceinline__ void tile_readout(const Params& p, float* part,
   }
 }
 
-template <bool INT8>
+// INT8 && LISTS: the int8 list form (product_lists); INT8 alone: folded
+// tiles on the tensor cores and shift-add digits; neither: fp32.
+template <bool INT8, bool LISTS = false>
 __global__ void __launch_bounds__(kThreads)
 rollout_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -386,7 +491,7 @@ rollout_kernel(const Params p) {
   const int c0 = ci * p.bk + (blk - ci * p.slices) * p.cw;  // first column
   const int4 meta = p.blk_meta[blk];
   const unsigned char* share = p.resident ? res : p.blob + meta.x;
-  const int n_mm = meta.y;
+  const int n_mm = meta.y;               // the list form: entries per lane
   const int n_dg = meta.z;
   // share: n_mm (row block, shift) pairs padded to 16 bytes, the tiles,
   // the digits
@@ -469,14 +574,34 @@ rollout_kernel(const Params p) {
           prev_s[idx] = p.xkeep[(size_t)b * p.rpad + col];
         }
       }
-      if constexpr (INT8) {
+      if constexpr (INT8 && !LISTS) {
         for (int i = tid; i < kRows * p.cw; i += kThreads) acc_s[i] = 0;
         __syncthreads();    // acc_s is zero before any thread adds to it
       }
       mbar_wait(bar, phase);
       phase ^= 1;
 
-      if constexpr (INT8) {
+      if constexpr (LISTS) {
+        const uint32_t* words = reinterpret_cast<const uint32_t*>(share);
+        const int lanes = list_lanes(p.cw);
+        if (bt == 1) {
+          product_lists<1>(xs, p.ldx, words, n_mm, p.cw, lanes, bt, acc_s,
+                           tid);
+        } else if (bt <= 2) {
+          product_lists<2>(xs, p.ldx, words, n_mm, p.cw, lanes, bt, acc_s,
+                           tid);
+        } else if (bt <= 4) {
+          product_lists<4>(xs, p.ldx, words, n_mm, p.cw, lanes, bt, acc_s,
+                           tid);
+        } else if (bt <= 8) {
+          product_lists<8>(xs, p.ldx, words, n_mm, p.cw, lanes, bt, acc_s,
+                           tid);
+        } else {
+          product_lists<kRows>(xs, p.ldx, words, n_mm, p.cw, lanes, bt,
+                               acc_s, tid);
+        }
+        __syncthreads();
+      } else if constexpr (INT8) {
         // MM terms on the tensor cores; rows >= bt of xs hold stale
         // values whose products land in rows nobody reads
         int cur = -1;
@@ -614,19 +739,19 @@ rollout_kernel(const Params p) {
   }
 }
 
-template <bool INT8>
+template <bool INT8, bool LISTS>
 int occupancy(int smem, int* blocks_per_sm) {
   static bool done = false;
-  cudaError_t e = fixedmat::allow_smem(rollout_kernel<INT8>, done);
+  cudaError_t e = fixedmat::allow_smem(rollout_kernel<INT8, LISTS>, done);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, rollout_kernel<INT8>, kThreads, smem));
+      blocks_per_sm, rollout_kernel<INT8, LISTS>, kThreads, smem));
 }
 
-template <bool INT8>
+template <bool INT8, bool LISTS>
 int launch(Params p, int n_blocks, int smem, void* stream) {
   static bool done = false;
-  cudaError_t e = fixedmat::allow_smem(rollout_kernel<INT8>, done);
+  cudaError_t e = fixedmat::allow_smem(rollout_kernel<INT8, LISTS>, done);
   if (e != cudaSuccess) return static_cast<int>(e);
   void* args[] = {&p};
   // the cooperative launch refuses a grid whose blocks cannot all be
@@ -634,7 +759,7 @@ int launch(Params p, int n_blocks, int smem, void* stream) {
   // A refused launch also stays this runtime's last error; it is read
   // (and so cleared) here, or the next launch's check would report it.
   e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(rollout_kernel<INT8>), dim3(n_blocks),
+      reinterpret_cast<void*>(rollout_kernel<INT8, LISTS>), dim3(n_blocks),
       dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);
@@ -642,9 +767,10 @@ int launch(Params p, int n_blocks, int smem, void* stream) {
 
 }  // namespace
 
-// B1 and B2: T steps of the rollout in one cooperative launch.
+// B1 and B2: T steps of the rollout in one cooperative launch.  `form`:
+// 0 fp32, 1 int8 folded tiles and digits, 2 int8 lists (pack_blocks).
 extern "C" int rollout_run(
-    int int8_mode, const float* u, long long su_t, long long su_b,
+    int form, const float* u, long long su_t, long long su_b,
     const float* w_in, const float* w_out, const float* x0, float* states,
     float* preds, float* final_state, void* xbuf, float* xkeep,
     float* partial, const void* blob, const void* blk_meta, int steps,
@@ -684,13 +810,16 @@ extern "C" int rollout_run(
   p.leak = leak;
   p.smax = smax;
   p.recur_scale = recur_scale;
-  return int8_mode ? launch<true>(p, n_blocks, smem, stream)
-                   : launch<false>(p, n_blocks, smem, stream);
+  return form == 2   ? launch<true, true>(p, n_blocks, smem, stream)
+         : form == 1 ? launch<true, false>(p, n_blocks, smem, stream)
+                     : launch<false, false>(p, n_blocks, smem, stream);
 }
 
-// Blocks of the rollout kernel one SM holds at `smem` bytes of dynamic
-// shared memory (the wrapper multiplies by the SM count).
-extern "C" int rollout_occupancy(int int8_mode, int smem, int* blocks_per_sm) {
-  return int8_mode ? occupancy<true>(smem, blocks_per_sm)
-                   : occupancy<false>(smem, blocks_per_sm);
+// Blocks of the rollout kernel's `form` (rollout_run's) one SM holds at
+// `smem` bytes of dynamic shared memory (the wrapper multiplies by the SM
+// count).
+extern "C" int rollout_occupancy(int form, int smem, int* blocks_per_sm) {
+  return form == 2   ? occupancy<true, true>(smem, blocks_per_sm)
+         : form == 1 ? occupancy<true, false>(smem, blocks_per_sm)
+                     : occupancy<false, false>(smem, blocks_per_sm);
 }

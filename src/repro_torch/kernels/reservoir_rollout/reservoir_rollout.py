@@ -15,7 +15,9 @@ of the paper's synthesis-time adder culling.  Two modes share one kernel:
   partial sums, reduced in a fixed tree (an order set by the grid and the
   table, never by the batch), in the twin in ascending row order;
 * ``int8`` — exact digit-plane arithmetic: the state batch is requantized
-  every step and each term is a shifted int32 plane-tile product.
+  every step and each term is a shifted int32 plane-tile product; on the
+  card a table sparse enough (:func:`pack_blocks`' rule) instead folds
+  every term of a column into one (row, weight) list, the same int32 sums.
 
 This module holds what both rollout kernels share — the host tables, their
 per-thread-block packing and grid choice, the launch of the persistent
@@ -57,6 +59,20 @@ _MMA_DEPTH = 32               # rows per MMA: K
 _BAR_BYTES = 16               # the mbarrier at the head of shared memory
 _ALIGN = 16                   # bulk copies move multiples of 16 bytes
 _MAX_DIGIT_COLS = 1 << 8      # a digit word's column field: bits 16-23
+_THREADS = 256                # threads per block
+_WARPS = _THREADS // 32
+_LIST_ROW_BITS = 16           # a list word: state row in bits 0-15, the
+_LIST_WEIGHT_MAX = 1 << 15    # signed weight in bits 16-31
+# The list form is taken when the longest column's entries per lane are at
+# most this many times the dense form's MMA units per warp (at least one),
+# both the largest over the grid's blocks.  From B2 alone on the card at
+# 1-25 % nonzeros, dims 1,024 and 4,096, batches 1, 4 and 16 (PERF.md §5,
+# "B2 alone by form"): the lists were at least as fast at every batch at
+# ratios 0.62, 1.0 (twice) and 2.12, and slower at batch 16 at 2.0 (dim
+# 1,024, 2 %) and above; between 1.0 and 2.0, so every table that takes
+# the lists is at least as fast at every batch measured.
+_LISTS_PER_MMA_UNIT = 1.5
+_FORMS = {"fp32": 0, "mma": 1, "lists": 2}      # rollout_run's `form`
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,17 +178,34 @@ class BlockShares:
 
     Block ``k`` owns columns ``c0 .. c0 + cw`` of column block
     ``k // slices`` (``c0`` = that block's first column + ``(k % slices)
-    * cw``).  Its share, at byte ``meta[k, 0]`` of ``blob``, holds the
-    column block's MM terms as int32 ``(row block, shift)`` pairs (padded
-    to 16 bytes), then its ``cw`` columns of every MM term's tile in that
-    order — int8 tiles as m16n8k32 B fragments (``(term, 32-row chunk,
-    8-column group)`` x 256 bytes, lane ``l``'s 8 bytes at ``8 l``), fp32
-    tiles as ``(term, 8-column group, row, column)`` floats (a warp reads
-    4 rows of a group as 32 consecutive floats) — then its shift-add
-    digits as one uint32 each (row of the state, column within the slice
-    << 16, shift << 24, negative << 28).  ``meta`` rows are ``(offset, MM
-    terms, digits, share bytes)``; shares are padded to 16 bytes for the
-    bulk copy.
+    * cw``).  Its share sits at byte ``meta[k, 0]`` of ``blob``, padded to
+    16 bytes for the bulk copy, in one of two forms (``form``), the same
+    for every block:
+
+    * ``"mma"`` (fp32 tables always): the column block's MM terms as int32
+      ``(row block, shift)`` pairs (padded to 16 bytes), then its ``cw``
+      columns of every MM term's tile in that order — int8 tiles as
+      m16n8k32 B fragments (``(term, 32-row chunk, 8-column group)`` x 256
+      bytes, lane ``l``'s 8 bytes at ``8 l``), fp32 tiles as ``(term,
+      8-column group, row, column)`` floats (a warp reads 4 rows of a
+      group as 32 consecutive floats) — then its shift-add digits as one
+      uint32 each (row of the state, column within the slice << 16, shift
+      << 24, negative << 28).  ``meta`` rows are ``(offset, MM terms,
+      digits, share bytes)``.
+    * ``"lists"`` (int8): each of the ``cw`` columns as the nonzero
+      entries of the column's folded weights over the state rows (its MM
+      tiles' elements << their shift plus its digits' +-(1 << w), summed
+      per row), ascending by row, one uint32 word each: the state row in
+      bits 0-15, the signed 16-bit weight in bits 16-31.  A column's
+      ``lanes`` = :func:`_list_lanes` threads share its list, lane ``l``
+      taking entries ``l``, ``l + lanes``, ...; every column is padded
+      with zero words (row 0, weight 0) to the block's ``per_lane x
+      lanes`` and word ``(i, j, l)`` of entry ``i lanes + l`` of column
+      ``j`` sits at ``(i cw + j) lanes + l``, so the block's threads read
+      consecutive words.  ``meta`` rows are ``(offset, per_lane, 0, share
+      bytes)``.
+
+    ``entries`` counts the list form's nonzero entries (0 for ``"mma"``).
     """
 
     n_blocks: int
@@ -180,6 +213,8 @@ class BlockShares:
     cw: int
     blob: np.ndarray
     meta: np.ndarray
+    form: str = "mma"
+    entries: int = 0
 
     @property
     def share_bytes(self) -> int:
@@ -198,19 +233,97 @@ def _pad16(a: np.ndarray) -> np.ndarray:
     return np.concatenate([a, np.zeros(-len(a) % _ALIGN, np.uint8)])
 
 
-def pack_blocks(tables: RolloutTables, n_blocks: int) -> BlockShares:
-    """Cut ``tables`` into the shares of ``n_blocks`` thread blocks."""
+def _list_lanes(cw: int) -> int:
+    """Threads that share one column's list in the list form
+    (``list_lanes`` in ``csrc/rollout.cu``): the largest power of two
+    ``L`` with ``L x cw`` at most the block's 256 threads (1 when ``cw``
+    exceeds them: the columns then take several passes)."""
+    return 1 << max(0, (_THREADS // cw).bit_length() - 1)
+
+
+def _folded_entries(tables: RolloutTables):
+    """Every nonzero folded weight of an int8 table, as ``(column, row,
+    weight)`` int64 arrays sorted by column then row: the sum over a
+    column block's MM terms of ``tile[row, col] << shift`` and over its
+    digits of ``+-(1 << w)``.  None when a weight or a row index needs
+    more than 16 bits (the list form cannot hold it)."""
+    bk, cp, rows = tables.block, tables.col_ptr_host, tables.terms_host
+    if tables.rows_pad > 1 << _LIST_ROW_BITS:
+        return None
+    per_ci = [(ci, t) for ci in range(tables.n_col_blocks)
+              for t in rows[cp[ci]:cp[ci + 1]]]
+    parts = []
+    mm = [(ci, slot, shift, rb) for ci, (k, slot, shift, rb) in per_ci
+          if k == 0]
+    if mm:
+        ci, slot, shift, rb = (np.asarray(v, np.int64) for v in zip(*mm))
+        tiles = tables.data_host[slot]
+        m, r, c = np.nonzero(tiles)
+        parts.append((ci[m] * bk + c, rb[m] * bk + r,
+                      tiles[m, r, c].astype(np.int64) << shift[m]))
+    sa = [(ci, rb, lo, hi) for ci, (k, rb, lo, hi) in per_ci if k == 1]
+    if sa:
+        ci, rb, lo, hi = (np.asarray(v, np.int64) for v in zip(*sa))
+        n = hi - lo
+        g = np.repeat(np.arange(len(sa)), n)
+        idx = np.repeat(lo - np.cumsum(n) + n, n) + np.arange(n.sum())
+        d = tables.digits_host[idx].astype(np.int64)
+        parts.append((ci[g] * bk + d[:, 1], rb[g] * bk + d[:, 0],
+                      d[:, 2] << d[:, 3]))
+    if not parts or not sum(len(v) for _c, _r, v in parts):
+        return (np.zeros(0, np.int64),) * 3
+    col, row, val = (np.concatenate(a) for a in zip(*parts))
+    key = col * tables.rows_pad + row
+    order = np.argsort(key, kind="stable")
+    key, val = key[order], val[order]
+    first = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    key, val = key[first], np.add.reduceat(val, first)
+    keep = val != 0
+    key, val = key[keep], val[keep]
+    if len(val) and (val.min() < -_LIST_WEIGHT_MAX
+                     or val.max() >= _LIST_WEIGHT_MAX):
+        return None
+    return key // tables.rows_pad, key % tables.rows_pad, val
+
+
+def _pack_lists(tables: RolloutTables, n_blocks: int, cw: int, entries
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """The list form's blob and meta of ``n_blocks`` blocks of ``cw``
+    columns from :func:`_folded_entries`."""
+    col, row, val = entries
+    lanes = _list_lanes(cw)
+    counts = np.bincount(col, minlength=n_blocks * cw)
+    per_lane = -(-counts.reshape(n_blocks, cw).max(1) // lanes)
+    words = per_lane * cw * lanes                 # a multiple of 8: 32 bytes
+    start = np.cumsum(np.r_[0, words])
+    blk, j = col // cw, col % cw
+    rank = np.arange(len(col)) - np.cumsum(np.r_[0, counts])[col]
+    at = start[blk] + (rank // lanes * cw + j) * lanes + rank % lanes
+    blob = np.zeros(max(int(start[-1]), _ALIGN // 4), np.uint32)
+    blob[at] = (row.astype(np.uint32)
+                | (val.astype(np.int16).view(np.uint16).astype(np.uint32)
+                   << _LIST_ROW_BITS))
+    meta = np.column_stack([start[:-1] * 4, per_lane, np.zeros_like(words),
+                            words * 4]).astype(np.int32)
+    return blob.view(np.uint8), meta
+
+
+def _mma_units(tables: RolloutTables, cw: int) -> int:
+    """The dense form's (term, 8-column group) MMA units per warp of the
+    busiest block."""
+    cp, rows = tables.col_ptr_host, tables.terms_host
+    n_mm = max(sum(1 for t in rows[cp[ci]:cp[ci + 1]] if t[0] == 0)
+               for ci in range(tables.n_col_blocks))
+    return -(-n_mm * (cw // _MMA_COLS) // _WARPS)
+
+
+def _pack_tiles(tables: RolloutTables, slices: int, cw: int
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """The dense (``"mma"``) form's blob and meta."""
     bk, ncb = tables.block, tables.n_col_blocks
-    slices = n_blocks // ncb
-    if n_blocks % ncb or slices not in _slice_options(bk):
-        raise ValueError(
-            f"{n_blocks} thread blocks do not split {ncb} column blocks of "
-            f"{bk} into 8-column groups; use {ncb} x one of "
-            f"{_slice_options(bk)}")
-    cw = bk // slices
     if tables.n_digits and cw > _MAX_DIGIT_COLS:
         raise ValueError(
-            f"{n_blocks} thread blocks give slices of {cw} columns; a "
+            f"{ncb * slices} thread blocks give slices of {cw} columns; a "
             f"shift-add digit word holds a column within its slice in 8 "
             f"bits, so slices of at most {_MAX_DIGIT_COLS} columns")
     groups, kch = cw // _MMA_COLS, bk // _MMA_DEPTH
@@ -248,8 +361,34 @@ def pack_blocks(tables: RolloutTables, n_blocks: int) -> BlockShares:
             shares.append(share)
             offset += len(share)
     blob = np.concatenate(shares) if offset else np.zeros(_ALIGN, np.uint8)
+    return blob, np.asarray(meta, np.int32).reshape(-1, 4)
+
+
+def pack_blocks(tables: RolloutTables, n_blocks: int) -> BlockShares:
+    """Cut ``tables`` into the shares of ``n_blocks`` thread blocks, in
+    the form the table takes on that grid: int8 takes ``"lists"`` when
+    every folded weight fits 16 bits and the longest column's entries
+    per lane are at most ``_LISTS_PER_MMA_UNIT`` times the dense form's
+    MMA units per warp; otherwise (and fp32 always) ``"mma"``."""
+    bk, ncb = tables.block, tables.n_col_blocks
+    slices = n_blocks // ncb
+    if n_blocks % ncb or slices not in _slice_options(bk):
+        raise ValueError(
+            f"{n_blocks} thread blocks do not split {ncb} column blocks of "
+            f"{bk} into 8-column groups; use {ncb} x one of "
+            f"{_slice_options(bk)}")
+    cw = bk // slices
+    entries = _folded_entries(tables) if tables.int8 else None
+    if entries is not None:
+        blob, meta = _pack_lists(tables, n_blocks, cw, entries)
+        if meta[:, 1].max() <= _LISTS_PER_MMA_UNIT * max(
+                1, _mma_units(tables, cw)):
+            return BlockShares(n_blocks=n_blocks, slices=slices, cw=cw,
+                               blob=blob, meta=meta, form="lists",
+                               entries=len(entries[0]))
+    blob, meta = _pack_tiles(tables, slices, cw)
     return BlockShares(n_blocks=n_blocks, slices=slices, cw=cw, blob=blob,
-                       meta=np.asarray(meta, np.int32).reshape(-1, 4))
+                       meta=meta)
 
 
 def stage_stride(tables: RolloutTables) -> int:
@@ -297,6 +436,11 @@ class RolloutGrid:
     smem: int                 # dynamic shared memory per block
     shares: BlockShares
 
+    @property
+    def form(self) -> str:
+        """The shares' form: ``"mma"`` (dense tiles) or ``"lists"``."""
+        return self.shares.form
+
 
 def plan_grid(tables: RolloutTables, capacity, n_blocks: int | None = None
               ) -> RolloutGrid:
@@ -332,17 +476,23 @@ def plan_grid(tables: RolloutTables, capacity, n_blocks: int | None = None
 
 def _device_capacity(int8: bool, device: torch.device):
     """``capacity(smem)`` of :func:`plan_grid` for the rollout kernel on
-    ``device``: the occupancy API's blocks per SM x the SM count."""
+    ``device``: the occupancy API's blocks per SM x the SM count, for int8
+    the fewer of its two forms' instantiations (the form is chosen after
+    the grid)."""
     lib = _cuda.LIBRARY.load()
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    forms = ("mma", "lists") if int8 else ("fp32",)
+
+    def per_sm(form: str, smem: int) -> int:
+        blocks = ctypes.c_int(0)
+        check(lib.rollout_occupancy(_FORMS[form], smem, ctypes.byref(blocks)),
+              "rollout_occupancy")
+        return blocks.value
 
     def capacity(smem: int) -> int:
         if smem > MAX_SMEM:
             return 0
-        per_sm = ctypes.c_int(0)
-        check(lib.rollout_occupancy(int(int8), smem, ctypes.byref(per_sm)),
-              "rollout_occupancy")
-        return per_sm.value * sms
+        return min(per_sm(form, smem) for form in forms) * sms
 
     return capacity
 
@@ -363,21 +513,24 @@ def rollout_grid(tables: RolloutTables, device: torch.device,
                   cw=grid.cw, resident=grid.resident,
                   share_bytes=grid.share_bytes, smem=grid.smem,
                   blob_bytes=int(grid.shares.blob.nbytes),
-                  mm_terms=tables.n_matmul_terms, digits=tables.n_digits)
+                  mm_terms=tables.n_matmul_terms, digits=tables.n_digits,
+                  form=grid.form, list_entries=grid.shares.entries)
     return tables.grids[key]
 
 
 def launch_counts(grid: RolloutGrid, steps: int, batch: int, b_tile: int
-                  ) -> tuple[int, int]:
+                  ) -> tuple[int, int, int]:
     """What one launch on ``grid`` adds to the kernels layer's counters:
-    ``(streamed share bytes, shift-add digits)``.  Streamed shares are
-    read whole from global memory by every block once per batch tile per
-    step (none beyond the one bulk copy when resident); each digit is
-    scattered once per batch row per step."""
+    ``(streamed share bytes, shift-add digits, product rows)``.  Streamed
+    shares are read whole from global memory by every block once per
+    batch tile per step (none beyond the one bulk copy when resident);
+    each digit of the dense form is scattered once per batch row per step
+    (the list form scatters none: its digits are folded into the
+    weights); the recurrent product runs once per step per batch row."""
     meta = grid.shares.meta
     streamed = 0 if grid.resident else (int(meta[:, 3].sum()) * steps
                                          * -(-batch // b_tile))
-    return streamed, int(meta[:, 2].sum()) * steps * batch
+    return streamed, int(meta[:, 2].sum()) * steps * batch, steps * batch
 
 
 # -- readout ------------------------------------------------------------------
@@ -456,7 +609,8 @@ def _launch_rollout(counted, u_seq, tables, w_in, x0, w_out=None, *,
     """One cooperative launch of the persistent kernel for all T steps
     (counted on ``counted.launches``; with ``want_preds`` the readout is
     computed inside it, counted on ``counted.fused_launches``;
-    with metrics on, its :func:`launch_counts` too, and with predictions
+    with metrics on, its :func:`launch_counts` too (product rows under the
+    grid's form), and with predictions
     its readout steps x batch rows under the grid's :func:`readout_path`).
     The last step writes straight into the final-state buffer — the
     caller's carry when it donates one.  ``n_blocks`` sets the grid
@@ -487,7 +641,8 @@ def _launch_rollout(counted, u_seq, tables, w_in, x0, w_out=None, *,
     xkeep = torch.empty((b, tables.rows_pad), device=dev)
     name = counted.__name__
     rc = _cuda.LIBRARY.load().rollout_run(
-        int(tables.int8), u_seq.data_ptr(), u_seq.stride(0), u_seq.stride(1),
+        _FORMS[grid.form if tables.int8 else "fp32"], u_seq.data_ptr(),
+        u_seq.stride(0), u_seq.stride(1),
         w_in.data_ptr(), _ptr(w_out if want_preds else None), x0.data_ptr(),
         _ptr(states), _ptr(preds), _ptr(final), xbuf.data_ptr(),
         xkeep.data_ptr(), _ptr(partial), blob.data_ptr(), meta.data_ptr(),
@@ -501,9 +656,11 @@ def _launch_rollout(counted, u_seq, tables, w_in, x0, w_out=None, *,
         counted.fused_launches += 1
     obs.inc("kernel_launches_total", kernel=name)
     if obs.metrics() is not None:
-        streamed, digits = launch_counts(grid, t_steps, b, b_tile)
+        streamed, digits, rows = launch_counts(grid, t_steps, b, b_tile)
         obs.inc("rollout_streamed_bytes_total", streamed, kernel=name)
         obs.inc("rollout_shiftadd_digits_total", digits, kernel=name)
+        obs.inc("rollout_product_rows_total", rows, kernel=name,
+                form=grid.form)
         if want_preds:
             obs.inc("rollout_readout_rows_total",
                     t_steps // readout_every * b, kernel=name,

@@ -8,7 +8,9 @@ product per kept (plane, block).  This kernel consumes a
   collapsed into the quantized block, one exact int32 tile product instead
   of ``width`` shifted plane products;
 * ``SA`` terms add a sparse plane's few set digits as ``±(x << w)``
-  shift-adds (integer atomics into a shared accumulator on the GPU);
+  shift-adds (on the GPU integer atomics into a shared accumulator, or,
+  in a sparse table's list form, folded with the tiles into one weight
+  per nonzero);
 * the batch axis splits into tiles of at most ``batch_tile_max`` rows
   (at most 16 on the GPU, one MMA tile), which every thread block walks
   in turn for its own column slice.

@@ -191,14 +191,31 @@ def test_rollout_kernels_one_launch_match_twins(cuda, mode, regime, batch):
                 assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("mode,n_blocks", [("int8", 32), ("int8", 128),
-                                           ("fp32", 8)])
-def test_rollout_kernels_stream_or_keep_tiles(cuda, mode, n_blocks):
-    """dim 1024, block 128 (LARGE_1024's shape): at 32 blocks B1's int8
-    share (256 KiB) and at 8 blocks its fp32 share (512 KiB) exceed shared
-    memory and stream from global memory every step; at 128 blocks both
-    kernels keep theirs resident.  Either way B1 and B2 match their twins
-    (and each other in int8), and a non-default grid is one launch too."""
+@pytest.mark.parametrize("mode,n_blocks,form", [
+    ("int8", 32, "mma"), ("int8", 128, "mma"), ("fp32", 8, "mma"),
+    ("int8", 32, "lists"), ("int8", 128, "lists")])
+def test_rollout_kernels_stream_or_keep_tiles(cuda, monkeypatch, mode,
+                                              n_blocks, form):
+    """dim 1024, block 128 (LARGE_1024's shape).  Dense int8 tiles (the
+    rule's constant at 0): at 32 blocks B1's share (256 KiB), and at 8
+    blocks its fp32 share (512 KiB), exceed shared memory and stream from
+    global memory every step; at 128 blocks both kernels keep theirs
+    resident.  The list form (the constant at infinity) on a capacity
+    that holds the blocks only without their shares: both kernels read
+    their lists from global memory every step.  Either way B1 and B2 match
+    their twins (and each other in int8), and a non-default grid is one
+    launch too."""
+    from repro_torch.kernels.reservoir_rollout import reservoir_rollout as rr
+    monkeypatch.setattr(rr, "_LISTS_PER_MMA_UNIT",
+                        0.0 if form == "mma" else float("inf"))
+    if form == "lists":
+        # room for every block's footprint without its share (smem_bytes:
+        # the mbarrier, 16 int8 state rows of 1,040 bytes, 12 bytes per
+        # output) and no more
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        base = 16 + 16 * 1040 + 16 * (1024 // n_blocks) * 12
+        monkeypatch.setattr(rr, "_device_capacity", lambda int8, dev: (
+            lambda smem: sms if smem <= base else 0))
     rng = np.random.default_rng(n_blocks)
     fm = FixedMatrix.compile(random_sparse_matrix(1024, 1024, 0.95, rng)
                              * 0.05, weight_bits=8, mode="csd", block=128,
@@ -217,7 +234,10 @@ def test_rollout_kernels_stream_or_keep_tiles(cuda, mode, n_blocks):
                             SpecializedRollout)):
         op = cls(fm, w_in, leak=0.3, mode=mode, w_out=w_out, device=cuda)
         grid, _ = rollout_grid(op.tables, cuda, n_blocks)
-        if fn is reservoir_rollout:
+        assert grid.form == form
+        if form == "lists":
+            assert not grid.resident
+        elif fn is reservoir_rollout:
             assert grid.resident is (n_blocks == 128)
         (s, p), n, ro = _run(fn, op, u, x0, 16, 1, n_blocks=n_blocks, **kw)
         assert (n, ro) == (1, 1)
@@ -397,34 +417,116 @@ def _esn4096_op(cuda):
     return op
 
 
-@pytest.mark.parametrize("batch", [1, 16])
+def _one_shot_and_chunks_match_twin(op, fn, plain, cuda, batch, t, split,
+                                    seed):
+    """One launch of ``fn`` on the op's default grid against its plain
+    twin, bit for bit in states and final state (predictions within
+    1e-4); then the same T in two chunks resuming from a carry donated in
+    place, equal to the one shot.  Returns the one shot's outputs."""
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.uniform(-1, 1, (t, batch, op.w_in.shape[0])),
+                        dtype=torch.float32, device=cuda)
+    x0 = torch.as_tensor(0.5 * rng.standard_normal((batch, op.dim)),
+                         dtype=torch.float32, device=cuda)
+    kw = dict(want_states=True, want_preds=True, want_final=True)
+    b_tile = op._batch_tile(batch)
+    (s, p, f), n, ro = _run(fn, op, u, x0, b_tile, 1, **kw)
+    assert (n, ro) == (1, 1)
+    ps, pp, pf = plain(u, op.tables, op.w_in, x0, op.w_out, leak=op.leak,
+                       smax=op.smax, recur_scale=op.recur_scale, **kw)
+    torch.cuda.synchronize()
+    assert s.abs().max().item() > 0.1
+    assert torch.equal(s, ps) and torch.equal(f, pf)
+    assert (p - pp).abs().max().item() <= 1e-4
+    carry = x0.clone()
+    chunks = []
+    for lo, hi in ((0, split), (split, t)):
+        (cs, cf), n, ro = _run(fn, op, u[lo:hi], carry, b_tile, 1,
+                               want_states=True, want_final=True,
+                               final_out=carry)
+        assert (n, ro) == (1, 0) and cf.data_ptr() == carry.data_ptr()
+        chunks.append(cs)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(chunks), s) and torch.equal(carry, f)
+    return s, p, f
+
+
+@pytest.mark.parametrize("batch", [1, 4, 16])
 def test_esn4096_default_grid_matches_twin(cuda, batch):
-    """dim 4,096 on the default grid, whose shares do not fit beside a
-    whole grid's state tiles and stream from global memory every step,
-    with the top plane's digits scattered: B2 equals its plain twin bit
-    for bit in states and final state over T = 64, in one launch.
+    """dim 4,096 on the default grid (256 blocks of 16 columns), whose
+    columns' folded (row, weight) lists -- the MM tiles and the top
+    plane's digits in one weight per nonzero -- stay resident: B2 equals
+    its plain twin bit for bit in states and final state over an odd
+    T = 63, in one launch, and in two chunks with a donated carry.
     Predictions within 1e-4: the kernel sums each block's 16 columns in
     a pairwise tree and the blocks' partials in ascending block order,
     the twin takes one x @ W_out."""
     op = _esn4096_op(cuda)
     grid, _ = rollout_grid(op.tables, cuda)
-    assert not grid.resident and grid.n_blocks % 32 == 0
-    rng = np.random.default_rng(batch)
-    u = torch.as_tensor(rng.uniform(-1, 1, (64, batch, 1)),
-                        dtype=torch.float32, device=cuda)
-    x0 = torch.as_tensor(0.5 * rng.standard_normal((batch, 4096)),
-                         dtype=torch.float32, device=cuda)
-    kw = dict(want_states=True, want_preds=True, want_final=True)
-    (s, p, f), n, ro = _run(specialized_rollout, op, u, x0,
-                            op._batch_tile(batch), 1, **kw)
-    assert (n, ro) == (1, 1)
-    ps, pp, pf = specialized_rollout_plain(
-        u, op.tables, op.w_in, x0, op.w_out, leak=op.leak, smax=op.smax,
-        recur_scale=op.recur_scale, **kw)
-    torch.cuda.synchronize()
-    assert s.abs().max().item() > 0.1
-    assert torch.equal(s, ps) and torch.equal(f, pf)
-    assert (p - pp).abs().max().item() <= 1e-4
+    assert (grid.n_blocks, grid.cw, grid.form, grid.resident) == (
+        256, 16, "lists", True)
+    assert grid.shares.meta[:, 2].sum() == 0
+    _one_shot_and_chunks_match_twin(op, specialized_rollout,
+                                    specialized_rollout_plain, cuda, batch,
+                                    63, 40, batch)
+
+
+@pytest.mark.parametrize("batch", [1, 4, 16])
+def test_large_1024_lists_match_twin(cuda, monkeypatch, batch):
+    """LARGE_1024 (dim 1,024, 95 % sparse) on the default grid, 128 blocks
+    of 8 columns: B1 takes the list form by the rule (its 64 plane terms a
+    column block make 8 MMA units a warp against 3 entries a lane), B2
+    keeps the dense form (1 unit a warp), and B2 forced into the lists
+    (the rule's constant at infinity) runs them too.  Each equals its
+    plain twin bit for bit over an odd T = 37 and in chunks with a
+    donated carry, and all three equal each other."""
+    from repro_torch.configs.esn_paper import LARGE_1024
+    from repro_torch.core.esn import init_esn
+    from repro_torch.kernels.reservoir_rollout import reservoir_rollout as rr
+    params = init_esn(LARGE_1024, device=cuda)
+    w_out = np.random.default_rng(11).uniform(-0.1, 0.1, (1024, 2)).astype(
+        np.float32)
+    got = []
+    for cls, fn, plain, form in (
+            (SpecializedRollout, specialized_rollout,
+             specialized_rollout_plain, "mma"),
+            (FusedRollout, reservoir_rollout, reservoir_rollout_plain,
+             "lists"),
+            (SpecializedRollout, specialized_rollout,
+             specialized_rollout_plain, "forced")):
+        if form == "forced":
+            monkeypatch.setattr(rr, "_LISTS_PER_MMA_UNIT", float("inf"))
+        op = cls(params.w, params.w_in, leak=0.8, mode="int8", w_out=w_out,
+                 device=cuda)
+        grid, _ = rollout_grid(op.tables, cuda)
+        assert (grid.n_blocks, grid.cw, grid.resident) == (128, 8, True)
+        assert grid.form == ("lists" if form == "forced" else form)
+        got.append(_one_shot_and_chunks_match_twin(
+            op, fn, plain, cuda, batch, 37, 18, batch))
+    for other in got[1:]:
+        for a, b in zip(got[0], other):
+            assert torch.equal(a, b)
+
+
+def test_dense_form_table_matches_twin(cuda):
+    """A 50 %-sparse int8 table keeps the dense MMA form on its default
+    grid, and B2 and B1 on it still equal their twins bit for bit, at
+    batch 1 and 5."""
+    rng = np.random.default_rng(50)
+    fm = FixedMatrix.compile(random_sparse_matrix(512, 512, 0.5, rng) * 0.02,
+                             weight_bits=8, mode="csd", block=128, rng=rng)
+    w_in = rng.uniform(-0.5, 0.5, (2, 512)).astype(np.float32)
+    w_out = rng.uniform(-0.1, 0.1, (512, 2)).astype(np.float32)
+    for cls, fn, plain in ((SpecializedRollout, specialized_rollout,
+                            specialized_rollout_plain),
+                           (FusedRollout, reservoir_rollout,
+                            reservoir_rollout_plain)):
+        op = cls(fm, w_in, leak=0.7, mode="int8", w_out=w_out, device=cuda)
+        grid, _ = rollout_grid(op.tables, cuda)
+        assert grid.form == "mma"
+        for batch in (1, 5):
+            _one_shot_and_chunks_match_twin(op, fn, plain, cuda, batch, 21,
+                                            8, batch)
 
 
 def test_esn4096_rows_independent_of_batch(cuda):
@@ -448,8 +550,10 @@ def test_esn4096_rows_independent_of_batch(cuda):
 
 def test_esn4096_counters_read_launch_counts(cuda):
     """With ``obs`` on, a fresh table's first launch records one
-    ``rollout_grid`` event and adds :func:`launch_counts` of its grid to
-    the streamed-bytes and shift-add-digit counters."""
+    ``rollout_grid`` event (the list form, resident) and adds
+    :func:`launch_counts` of its grid to the streamed-bytes, shift-add
+    digit and product-row counters: no bytes streamed, no digit
+    scattered, steps x rows under ``form="lists"``."""
     from repro_torch import obs
     from repro_torch.kernels.reservoir_rollout.reservoir_rollout import \
         launch_counts
@@ -466,13 +570,15 @@ def test_esn4096_counters_read_launch_counts(cuda):
         m = obs.metrics()
         got = tuple(m.get(name).value(kernel="specialized_rollout")
                     for name in ("rollout_streamed_bytes_total",
-                                 "rollout_shiftadd_digits_total"))
+                                 "rollout_shiftadd_digits_total")) + (
+            m.get("rollout_product_rows_total").value(
+                kernel="specialized_rollout", form="lists"),)
     finally:
         obs.disable()
-    assert (ev.fields["n_blocks"], ev.fields["resident"]) == (
-        grid.n_blocks, False)
-    assert got == launch_counts(grid, 16, 2, 2)
-    assert got[0] > 0 and got[1] == op.tables.n_digits * 16 * 2
+    assert (ev.fields["n_blocks"], ev.fields["resident"], ev.fields["form"],
+            ev.fields["list_entries"]) == (grid.n_blocks, True, "lists",
+                                           grid.shares.entries)
+    assert got == launch_counts(grid, 16, 2, 2) == (0, 0, 16 * 2)
 
 
 # -- fixed-matrix kernels (B3, B4, B5) against their twins on the card --------

@@ -9,11 +9,13 @@ nothing and reads the clock no more than the request's timings need;
 events and spans share ``time.perf_counter``; the span, histogram and
 event this path no longer emits stay gone.  The rollout kernels' grid
 event and counters: what :func:`launch_counts` gives on resident and
-streamed shares, and what the card-only launch path records, driven on
-the CPU with the library stubbed out.
+streamed shares in either form of the int8 shares, and what the
+card-only launch path records, driven on the CPU with the library
+stubbed out.
 """
 
 import contextlib
+import math
 import pathlib
 import re
 import time
@@ -224,25 +226,40 @@ def _digit_tables():
     return op.tables
 
 
+_FORCE = {"mma": 0.0, "lists": math.inf}
+
+
+def _force(monkeypatch, form):
+    """Pack int8 shares in ``form``: the rule's constant at 0 or
+    infinity."""
+    from repro_torch.kernels.reservoir_rollout import reservoir_rollout as rr
+    monkeypatch.setattr(rr, "_LISTS_PER_MMA_UNIT", _FORCE[form])
+
+
+@pytest.mark.parametrize("form", ["mma", "lists"])
 @pytest.mark.parametrize("resident", [True, False])
-def test_launch_counts_resident_and_streamed(resident):
+def test_launch_counts_resident_and_streamed(monkeypatch, resident, form):
     """Resident shares stream nothing beyond the one bulk copy; streamed
     ones are read whole by every block once per batch tile per step (20
-    rows in tiles of 16: two).  Each digit is scattered once per batch
-    row per step either way."""
+    rows in tiles of 16: two).  In the dense form each digit is scattered
+    once per batch row per step either way; the list form folds its
+    digits into the weights and scatters none.  The product runs once per
+    step per batch row in both."""
     from repro_torch.kernels.reservoir_rollout.reservoir_rollout import (
         launch_counts, plan_grid, smem_bytes)
+    _force(monkeypatch, form)
     tables = _digit_tables()
     # 32 blocks of 8 columns; streamed: room for the blocks without shares
     room = 10 ** 6 if resident else smem_bytes(tables, 8)
     grid = plan_grid(tables, lambda smem: 64 if smem <= room else 0)
-    assert (grid.n_blocks, grid.cw) == (32, 8)
+    assert (grid.n_blocks, grid.cw, grid.form) == (32, 8, form)
     assert grid.resident is resident
     share_total = int(grid.shares.meta[:, 3].sum())
     assert share_total == grid.shares.blob.nbytes
-    streamed, digits = launch_counts(grid, 7, 20, 16)
-    assert digits == tables.n_digits * 7 * 20
+    streamed, digits, rows = launch_counts(grid, 7, 20, 16)
+    assert digits == (tables.n_digits * 7 * 20 if form == "mma" else 0)
     assert streamed == (0 if resident else share_total * 7 * 2)
+    assert rows == 7 * 20
     assert launch_counts(grid, 7, 16, 16)[0] == streamed // 2
 
 
@@ -279,30 +296,42 @@ def _launch(rr, tables, t, b, **kw):
                               **kw})
 
 
-def test_rollout_grid_event_and_counters(monkeypatch):
+@pytest.mark.parametrize("form", ["mma", "lists"])
+def test_rollout_grid_event_and_counters(monkeypatch, form):
     """One ``rollout_grid`` event per grid built, with the grid's
-    geometry and the table's terms; each launch adds what
-    :func:`launch_counts` says to both counters, under its kernel's
-    name."""
+    geometry, its form and list entries and the table's terms; each
+    launch adds what :func:`launch_counts` says to the three counters,
+    under its kernel's name (product rows also under the form): digits
+    scattered only by the dense form, steps x rows of the product by
+    either."""
     rr = _fake_card(monkeypatch)
+    _force(monkeypatch, form)
     tables = _digit_tables()
     obs.configure()
     _launch(rr, tables, 5, 3)
     _launch(rr, tables, 9, 20)
     grid, _ = rr.rollout_grid(tables, torch.device("cpu"))
+    assert grid.form == form
     (ev,) = obs.events().events("rollout_grid")
     assert ev.fields == dict(
         mode="int8", n_blocks=grid.n_blocks, cw=grid.cw,
         resident=grid.resident, share_bytes=grid.share_bytes,
         smem=grid.smem, blob_bytes=grid.shares.blob.nbytes,
-        mm_terms=tables.n_matmul_terms, digits=tables.n_digits)
+        mm_terms=tables.n_matmul_terms, digits=tables.n_digits, form=form,
+        list_entries=grid.shares.entries)
+    assert (grid.shares.entries > 0) is (form == "lists")
     want = [a + b for a, b in zip(rr.launch_counts(grid, 5, 3, 3),
                                   rr.launch_counts(grid, 9, 20, 16))]
     m = obs.metrics()
     got = [m.get(name).value(kernel="specialized_rollout")
            for name in ("rollout_streamed_bytes_total",
                         "rollout_shiftadd_digits_total")]
-    assert got == want and want[1] == tables.n_digits * (5 * 3 + 9 * 20)
+    rows = m.get("rollout_product_rows_total")
+    got.append(rows.value(kernel="specialized_rollout", form=form))
+    assert got == want and want[2] == 5 * 3 + 9 * 20
+    assert want[1] == (tables.n_digits * (5 * 3 + 9 * 20) if form == "mma"
+                       else 0)
+    assert rows.value() == want[2]
 
 
 def test_rollout_sites_record_nothing_when_off(monkeypatch):

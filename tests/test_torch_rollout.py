@@ -14,11 +14,14 @@ throughout (the reference's batch-1 rows may differ by an ulp, C-ref-1).
   rollouts resuming from the carried state equal one-shot bit for bit.
 * The CUDA kernel's host side: each thread block's packed share (column
   slice, bytes, digits) against a direct computation from the tables, the
-  shares decoded by the m16n8k32 fragment layout give the exact recurrent
-  product, and the grid and residency choice at LARGE_1024.  The port's
-  ops take no band budget: the shares of a program lowered at any budget
-  are byte-identical to the unbanded one's.
+  shares decoded by the m16n8k32 fragment layout, or as the list form's
+  (row, weight) words, give the exact recurrent product, the form the
+  rule chooses, and the grid and residency choice at LARGE_1024.  The
+  port's ops take no band budget: the shares of a program lowered at any
+  budget are byte-identical to the unbanded one's.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +37,7 @@ from repro.kernels.reservoir_rollout.specialized import \
 from repro.plan import plan_for as j_plan_for
 from repro_torch.core.sparse import FixedMatrix, random_sparse_matrix
 from repro_torch.kernels.reservoir_rollout import _cuda
+from repro_torch.kernels.reservoir_rollout import reservoir_rollout as rr
 from repro_torch.kernels.reservoir_rollout.ops import FusedRollout
 from repro_torch.kernels.reservoir_rollout.ref import (rollout_fp32_ref,
                                                        rollout_int8_ref)
@@ -274,13 +278,83 @@ _LANE = np.arange(32)
 _GID, _TIG = _LANE >> 2, _LANE & 3
 
 
+_FOLDED = {}
+
+
+def _folded(tables):
+    """The int8 table's folded weights as a dense (rows_pad, rows_pad)
+    int64 matrix, straight from the term tables: each MM term's tile
+    << shift at (row block, column block), each digit's +-(1 << w)."""
+    if id(tables) in _FOLDED and _FOLDED[id(tables)][0] is tables:
+        return _FOLDED[id(tables)][1]
+    bk = tables.block
+    q = np.zeros((tables.rows_pad, tables.rows_pad), np.int64)
+    cp = tables.col_ptr_host
+    for ci in range(tables.n_col_blocks):
+        cols = slice(ci * bk, (ci + 1) * bk)
+        for kind, a, c, d in tables.terms_host[cp[ci]:cp[ci + 1]]:
+            if kind == 0:
+                q[d * bk:(d + 1) * bk, cols] += (
+                    tables.data_host[a].astype(np.int64) << c)
+            else:
+                dg = tables.digits_host[c:d].astype(np.int64)
+                np.add.at(q, (a * bk + dg[:, 0], ci * bk + dg[:, 1]),
+                          dg[:, 2] << dg[:, 3])
+    _FOLDED[id(tables)] = (tables, q)
+    return q
+
+
+def _lanes(cw):
+    """Lanes per column of the list form: 256 // cw rounded down to a
+    power of two, at least 1."""
+    lanes = 1
+    while 2 * lanes * cw <= 256:
+        lanes *= 2
+    return lanes
+
+
+def _decode_lists(tables, shares, x):
+    """The list form as the kernel reads it: block k's word (i, j, l) at
+    ((i cw + j) lanes + l) is entry i lanes + l of column j, row in bits
+    0-15 and the signed weight in bits 16-31.  Asserts each column's
+    entries are its nonzero folded weights, once each, in ascending rows
+    and then zero padding; returns the product of ``x``."""
+    bk, cw = tables.block, shares.cw
+    lanes = _lanes(cw)
+    q = _folded(tables)
+    x = x.astype(np.int64)
+    out = np.zeros((x.shape[0], tables.rows_pad), np.int64)
+    for blk in range(shares.n_blocks):
+        ci, sl = divmod(blk, shares.slices)
+        c0 = ci * bk + sl * cw
+        off, per_lane, n_digits, n_bytes = shares.meta[blk]
+        assert n_digits == 0 and n_bytes == per_lane * cw * lanes * 4
+        words = shares.blob[off:off + n_bytes].view(np.uint32).reshape(
+            per_lane, cw, lanes)
+        rows = (words & 0xFFFF).astype(np.int64)
+        wts = (words.view(np.int32) >> 16).astype(np.int64)
+        for j in range(cw):
+            r = rows[:, j, :].reshape(-1)          # entry order i lanes + l
+            w = wts[:, j, :].reshape(-1)
+            n = int((w != 0).sum())
+            assert (w[n:] == 0).all() and (r[n:] == 0).all()
+            assert (np.diff(r[:n]) > 0).all()
+            col = q[:, c0 + j]
+            np.testing.assert_array_equal(r[:n], np.flatnonzero(col))
+            np.testing.assert_array_equal(w[:n], col[r[:n]])
+        out[:, c0:c0 + cw] = np.einsum("bicl,icl->bc", x[:, rows], wts)
+    return out
+
+
 def _decode_shares(tables, shares, x):
     """The kernel's reads of the packed shares, in numpy: each block's MM
     tiles decoded by the m16n8k32 B-fragment layout (lane l holds rows
     4 (l % 4) + e and 16 + 4 (l % 4) + e of column l // 4) or as fp32
     (term, 8-column group, row, column) floats, its digits from their
-    uint32 words; the
+    uint32 words, or the list form (:func:`_decode_lists`); the
     recurrent product of the (B, rows_pad) state ``x`` over all blocks."""
+    if shares.form == "lists":
+        return _decode_lists(tables, shares, x)
     bk, cw = tables.block, shares.cw
     groups, kch = cw // 8, bk // 32
     exact = tables.int8
@@ -368,11 +442,18 @@ def _replay_f32_lanes(tables, shares, x):
     return out
 
 
-def _expected_share(tables, ci, c0, cw):
-    """(MM terms, digits, share bytes) of the block owning columns
-    c0 .. c0 + cw of column block ci, counted from the term tables
-    directly: 8 bytes per term (padded to 16), its tile slices, 4 bytes
-    per digit, padded to 16."""
+def _expected_share(tables, ci, c0, cw, form="mma"):
+    """The block owning columns c0 .. c0 + cw of column block ci, counted
+    from the term tables directly.  Dense form: (MM terms, digits, share
+    bytes), 8 bytes per term (padded to 16), its tile slices, 4 bytes per
+    digit, padded to 16.  List form: (entries per lane, 0, share bytes),
+    the longest of its columns' nonzero folded weights over the lanes,
+    4 bytes per word of every column and lane."""
+    if form == "lists":
+        col = _folded(tables)[:, ci * tables.block + c0:][:, :cw]
+        lanes = _lanes(cw)
+        per_lane = -(-int((col != 0).sum(0).max()) // lanes)
+        return per_lane, 0, per_lane * cw * lanes * 4
     cp = tables.col_ptr_host
     n_mm = n_dg = 0
     for kind, _a, lo, hi in tables.terms_host[cp[ci]:cp[ci + 1]]:
@@ -387,19 +468,48 @@ def _expected_share(tables, ci, c0, cw):
     return n_mm, n_dg, -(-body // 16) * 16
 
 
-def _check_shares(tables, x, slice_options):
+_FORCE = {"mma": 0.0, "lists": math.inf}
+
+
+def _rule(tables, cw):
+    """The form the rule gives ``tables`` at slices of ``cw`` columns,
+    counted from the term tables: lists for int8 when every folded weight
+    fits 16 bits and the longest column's entries per lane are at most
+    ``_LISTS_PER_MMA_UNIT`` x the busiest block's MMA units per warp (at
+    least 1)."""
+    if not tables.int8:
+        return "mma"
+    q = _folded(tables)
+    if q.min() < -(1 << 15) or q.max() >= 1 << 15:
+        return "mma"
+    per_lane = -(-int((q != 0).sum(0).max()) // _lanes(cw))
+    cp = tables.col_ptr_host
+    n_mm = max(sum(1 for t in tables.terms_host[cp[ci]:cp[ci + 1]]
+                   if t[0] == 0) for ci in range(tables.n_col_blocks))
+    units = -(-n_mm * (cw // 8) // 8)
+    return ("lists" if per_lane <= rr._LISTS_PER_MMA_UNIT * max(1, units)
+            else "mma")
+
+
+def _check_shares(tables, x, slice_options, monkeypatch=None, form=None):
+    """Every slicing's shares against the tables, in the form the rule
+    gives or, with ``form``, in that form (the rule's constant patched)."""
+    if form is not None:
+        monkeypatch.setattr(rr, "_LISTS_PER_MMA_UNIT", _FORCE[form])
     want = plain_recurrent_product(torch.as_tensor(x), tables).numpy()
     ncb, bk = tables.n_col_blocks, tables.block
     for slices in slice_options:
         shares = pack_blocks(tables, ncb * slices)
         assert shares.cw == bk // slices
+        assert shares.form == (form if tables.int8 and form
+                               else _rule(tables, shares.cw))
         offsets = np.cumsum([0] + list(shares.meta[:, 3]))
         assert (shares.meta[:, 0] == offsets[:-1]).all()
         assert (shares.meta[:, 0] % 16 == 0).all()
         for blk in range(ncb * slices):
             ci, sl = divmod(blk, slices)
             assert tuple(shares.meta[blk, 1:]) == _expected_share(
-                tables, ci, sl * shares.cw, shares.cw)
+                tables, ci, sl * shares.cw, shares.cw, shares.form)
         got = _decode_shares(tables, shares, x)
         if tables.int8:
             np.testing.assert_array_equal(got, want)
@@ -424,6 +534,61 @@ def test_block_shares_decode_to_recurrent_product(mode, regime, kernel):
     else:
         x = rng.standard_normal((3, DIM)).astype(np.float32)
     _check_shares(tables, x, (1, 2, 4, 8))          # 8 columns at 8
+
+
+@pytest.mark.parametrize("form", ["mma", "lists"])
+@pytest.mark.parametrize("kernel", ["generic", "specialized"])
+@pytest.mark.parametrize("mode", ["int8-pn", "int8-csd"])
+def test_both_int8_forms_decode_to_recurrent_product(monkeypatch, mode,
+                                                     kernel, form):
+    """Each int8 form forced on every slicing (the rule's constant patched
+    to 0 or infinity): the dense tiles by their fragment layout, the lists
+    word by word against the folded weights, both the exact product."""
+    _j, _js, t_gen, t_spec = _pair(mode, "resident")
+    tables = (t_gen if kernel == "generic" else t_spec).tables
+    x = np.random.default_rng(8).integers(-128, 128, (3, DIM)).astype(
+        np.int32)
+    _check_shares(tables, x, (1, 2, 4, 8), monkeypatch, form)
+
+
+def test_per_plane_terms_and_digits_fold_into_one_weight(monkeypatch):
+    """B1's per-plane MM terms with their shifts and shift-add digits on
+    the same row block fold into one list entry per (row, column): a
+    weight the terms cancel leaves no entry, a digit on a tile's nonzero
+    adds to it, and the lists give the exact product."""
+    rng = np.random.default_rng(4)
+    bk = 32
+    data = np.zeros((1, 2, bk, bk), np.int8)
+    mask = rng.random((2, bk, bk)) < 0.1
+    data[0] = np.where(mask, rng.integers(-3, 4, (2, bk, bk)), 0)
+    data[0, 0, 3, 4], data[0, 1, 3, 4] = 8, -1          # 8 + (-1 << 3) = 0
+    data[0, 0, 5, 6], data[0, 1, 5, 6] = 1, 0
+    data[0, :, 10, 11] = 0
+    digits = ((5, 6, -1, 2), (7, 9, 1, 5), (10, 11, 1, 0))
+    terms = ((MM, 0, 0, 0), (MM, 1, 3, 0), (SA, 0, digits))
+    tables = build_tables((((0, terms),),), data, mode="int8",
+                          n_col_blocks=1, device="cpu")
+    q = _folded(tables)
+    assert (q[3, 4], q[5, 6], q[10, 11]) == (0, 1 - 4, 1)
+    assert q[7, 9] == int(data[0, 0, 7, 9]) + (int(data[0, 1, 7, 9]) << 3) \
+        + 32
+    monkeypatch.setattr(rr, "_LISTS_PER_MMA_UNIT", math.inf)
+    for slices in (1, 2, 4):
+        shares = pack_blocks(tables, slices)
+        assert shares.form == "lists"
+        assert shares.entries == int((q != 0).sum())
+    x = rng.integers(-128, 128, (5, bk)).astype(np.int32)
+    _check_shares(tables, x, (1, 2, 4), monkeypatch, "lists")
+    # a weight beyond 16 bits keeps the dense form whatever the constant
+    big = build_tables((((0, ((MM, 0, 9, 0),)),),), data[:, :1] * 0 + 100,
+                       mode="int8", n_col_blocks=1, device="cpu")
+    assert pack_blocks(big, 1).form == "mma"
+    # all-zero tiles fold to no entries: empty lists, a share of 0 bytes
+    empty = build_tables((((0, ((MM, 0, 0, 0),)),),), data[:, :1] * 0,
+                         mode="int8", n_col_blocks=1, device="cpu")
+    shares = pack_blocks(empty, 1)
+    assert (shares.form, shares.entries) == ("lists", 0)
+    assert shares.meta.tolist() == [[0, 0, 0, 0]]
 
 
 @pytest.mark.parametrize("kernel", ["generic", "specialized"])
@@ -591,46 +756,63 @@ def _one_per_sm(smem):
     return 132 if smem <= 227 * 1024 else 0
 
 
-@pytest.mark.parametrize("n_blocks,b2_share,b1_share,b1_resident", [
-    (128, 8 * 1024, 64 * 1024, True),
-    (64, 16 * 1024, 128 * 1024, True),
-    (32, 32 * 1024, 256 * 1024, False)])
+@pytest.mark.parametrize("n_blocks,b2_share,b1_per_lane,b1_lanes", [
+    (128, 8 * 1024, 3, 32),
+    (64, 16 * 1024, 5, 16),
+    (32, 32 * 1024, 10, 8)])
 def test_large_1024_grid_and_residency(large_1024, n_blocks, b2_share,
-                                       b1_share, b1_resident):
+                                       b1_per_lane, b1_lanes):
     """At LARGE_1024 (8 column blocks of 128, 64 folded tiles for B2, 512
-    plane tiles for B1, no digits) a block of 8 columns holds 8 KiB of
-    B2's tiles and 64 KiB of B1's, beside 8 bytes per term (8 and 64
-    terms); at 32 blocks B1's 256 KiB does not fit and streams.  Shared
-    memory: the mbarrier, 16 rows of the int8 state (1024 + 16 bytes
-    each), three 16 x cw arrays of 4-byte values (the int32 accumulator,
-    u . W_in and x(n-1)), and the share when resident."""
+    plane tiles for B1, no digits; 52,276 nonzero weights) B2 keeps the
+    dense form on every grid -- its longest column's entries per lane
+    (3, 5, 10) exceed 1.5 x its MMA units per warp (1, 2, 4) -- and a
+    block of 8 columns holds 8 KiB of its tiles beside 8 bytes per term
+    (8 terms).  B1's 64 plane terms per column block (8, 16, 32 units per
+    warp) fold into the same weights, so it takes the lists: per column
+    ``lanes`` = 256 / cw lanes of 3, 5 and 10 words each at the longest,
+    4 bytes a word, 3 / 5 / 10 KiB a block, resident at every grid (its
+    dense 256 KiB share streamed at 32 blocks).  Shared memory: the
+    mbarrier, 16 rows of the int8 state (1024 + 16 bytes each), three
+    16 x cw arrays of 4-byte values (the int32 accumulator, u . W_in and
+    x(n-1)), and the share when resident."""
     b2, b1, _f32 = large_1024
     assert (b2.n_matmul_terms, b2.n_digits, b1.n_matmul_terms) == (64, 0, 512)
-    for tables, tiles, n_mm, resident in (
-            (b2, b2_share, 8, True), (b1, b1_share, 64, b1_resident)):
-        grid = plan_grid(tables, _one_per_sm, n_blocks)
-        cw = 1024 // n_blocks
-        base = 16 + 16 * 1040 + 16 * cw * 12
-        share = 8 * n_mm + tiles
-        assert (grid.n_blocks, grid.slices, grid.cw) == (n_blocks,
-                                                         n_blocks // 8, cw)
-        assert grid.share_bytes == share
-        assert (grid.shares.meta[:, 1:] == (n_mm, 0, share)).all()
-        assert grid.resident is resident
-        assert grid.smem == base + (share if resident else 0)
-        assert smem_bytes(tables, cw, share) == base + share
+    cw = 1024 // n_blocks
+    base = 16 + 16 * 1040 + 16 * cw * 12
+    grid = plan_grid(b2, _one_per_sm, n_blocks)
+    share = 8 * 8 + b2_share
+    assert (grid.n_blocks, grid.slices, grid.cw, grid.form) == (
+        n_blocks, n_blocks // 8, cw, "mma")
+    assert grid.share_bytes == share
+    assert (grid.shares.meta[:, 1:] == (8, 0, share)).all()
+    assert grid.resident and grid.shares.entries == 0
+    assert grid.smem == base + share
+    assert smem_bytes(b2, cw, share) == base + share
+    grid = plan_grid(b1, _one_per_sm, n_blocks)
+    share = b1_per_lane * cw * b1_lanes * 4
+    meta = grid.shares.meta
+    assert (grid.n_blocks, grid.slices, grid.cw, grid.form) == (
+        n_blocks, n_blocks // 8, cw, "lists")
+    assert grid.share_bytes == share and meta[:, 1].max() == b1_per_lane
+    assert (meta[:, 2] == 0).all()
+    assert (meta[:, 3] == meta[:, 1] * cw * b1_lanes * 4).all()
+    assert grid.shares.entries == 52_276
+    assert grid.shares.blob.nbytes == meta[:, 3].sum()
+    assert grid.resident and grid.smem == base + share
 
 
 def test_large_1024_default_grid(large_1024):
     """The default grid is the narrowest slicing the card holds at once:
-    128 blocks of 8 columns on 132 SMs, whatever the tables' share; with
-    room for only 100 blocks it falls to 64.  fp32 stages 16 rows of
-    4 x 1024 + 16 bytes and keeps B1's 32 KiB of tiles (8 terms)
-    resident.  Its 16 x 8 outputs keep u . W_in, x(n-1) and the 8 warps'
-    partial sums of the fp32 product (8 x 4 bytes each)."""
+    128 blocks of 8 columns on 132 SMs, whatever the tables' share and
+    form (B2 dense, B1 lists, fp32 dense); with room for only 100 blocks
+    it falls to 64.  fp32 stages 16 rows of 4 x 1024 + 16 bytes and keeps
+    B1's 32 KiB of tiles (8 terms) resident.  Its 16 x 8 outputs keep
+    u . W_in, x(n-1) and the 8 warps' partial sums of the fp32 product
+    (8 x 4 bytes each)."""
     b2, b1, f32 = large_1024
-    for tables in (b2, b1, f32):
-        assert plan_grid(tables, _one_per_sm).n_blocks == 128
+    for tables, form in ((b2, "mma"), (b1, "lists"), (f32, "mma")):
+        grid = plan_grid(tables, _one_per_sm)
+        assert (grid.n_blocks, grid.form) == (128, form)
         assert plan_grid(tables, lambda smem: 100).n_blocks == 64
     grid = plan_grid(f32, _one_per_sm)
     assert (grid.share_bytes, grid.resident) == (64 + 32 * 1024, True)
@@ -638,3 +820,63 @@ def test_large_1024_default_grid(large_1024):
         64 + 32 * 1024
     with pytest.raises(ValueError, match="shared memory"):
         plan_grid(f32, lambda smem: 0)
+
+
+@pytest.fixture(scope="module")
+def esn4096_tables():
+    """The paper's largest reservoir's shape (dim 4,096, 98 % of elements
+    zero, block 128, int8-CSD; the seeded draw of the card's tests): B2's
+    int8 tables, 1,024 folded tiles and the top plane's digits."""
+    rng = np.random.default_rng(30)
+    fm = FixedMatrix.compile(random_sparse_matrix(4096, 4096, 0.98, rng)
+                             * 0.17, weight_bits=8, mode="csd", block=128,
+                             rng=rng)
+    return SpecializedRollout(fm, np.zeros((1, 4096), np.float32),
+                              mode="int8", device="cpu").tables
+
+
+def _h100(smem):
+    """A 132-SM card holding two blocks an SM up to half its shared
+    memory (what the occupancy API gives the int8 kernel), one beyond."""
+    return (264 if smem <= 227 * 1024 // 2 else
+            132 if smem <= 227 * 1024 else 0)
+
+
+def test_rule_takes_lists_at_2_percent(esn4096_tables):
+    """At 2 % nonzeros and dim 4,096 the default grid (256 blocks of 16
+    columns) takes the lists: 8 entries a lane at the longest column
+    against 8 MMA units a warp, ratio 1.0.  Its shares drop from ~65 KB
+    of tiles and digits to 8 KiB of words and stay resident beside the
+    68,880-byte footprint; no digit is left to scatter."""
+    tables = esn4096_tables
+    assert tables.n_matmul_terms == 1024 and tables.n_digits > 30_000
+    grid = plan_grid(tables, _h100)
+    assert (grid.n_blocks, grid.cw, grid.form, grid.resident) == (
+        256, 16, "lists", True)
+    assert rr._mma_units(tables, 16) == 8
+    assert grid.shares.meta[:, 1].max() == 8
+    assert grid.share_bytes == 8 * 16 * 16 * 4
+    assert grid.smem == 68_880 + 8 * 1024
+    assert (grid.shares.meta[:, 2] == 0).all()
+    assert _rule(tables, 16) == "lists"
+
+
+def test_rule_at_5_percent_and_50_percent(large_1024):
+    """The rule at LARGE_1024's 5 %: B2 keeps the dense form (3 entries a
+    lane against 1 MMA unit a warp: ratio 3 > 1.5) and B1, whose plane
+    terms make 8 units a warp, takes the lists.  A 50 %-sparse int8 B2
+    table keeps the dense form: 18 entries a lane (563 at the longest
+    column) against 1 unit a warp."""
+    b2, b1, _f32 = large_1024
+    assert [plan_grid(t, _one_per_sm).form for t in (b2, b1)] == [
+        "mma", "lists"]
+    rng = np.random.default_rng(50)
+    fm = FixedMatrix.compile(random_sparse_matrix(1024, 1024, 0.5, rng)
+                             * 0.02, weight_bits=8, mode="csd", block=128,
+                             rng=rng)
+    half = SpecializedRollout(fm, np.zeros((1, 1024), np.float32),
+                              mode="int8", device="cpu").tables
+    grid = plan_grid(half, _one_per_sm)
+    assert (grid.n_blocks, grid.form) == (128, "mma")
+    assert grid.shares.meta[:, 1].max() == 8 and _rule(half, 8) == "mma"
+    assert np.bincount(rr._folded_entries(half)[0]).max() == 563
