@@ -46,11 +46,11 @@ from repro_torch.kernels._launch import (MAX_SMEM, check_f32, require_cuda,
 from repro_torch.kernels.reservoir_rollout import _cuda
 from repro_torch.plan.specialize import MM
 
-__all__ = ["BlockShares", "RolloutGrid", "RolloutTables", "build_tables",
-           "generic_schedules", "launch_counts", "pack_blocks",
-           "plain_recurrent_product", "plan_grid", "readout_path",
-           "reservoir_rollout", "reservoir_rollout_plain", "rollout_grid",
-           "rollout_readout_plain", "smem_bytes"]
+__all__ = ["BlockShares", "RolloutGrid", "RolloutTables", "blocks_per_sm",
+           "build_tables", "generic_schedules", "io_macs", "launch_counts",
+           "pack_blocks", "plain_recurrent_product", "plan_grid",
+           "readout_path", "reservoir_rollout", "reservoir_rollout_plain",
+           "rollout_grid", "rollout_readout_plain", "smem_bytes"]
 
 # The persistent kernel's geometry (csrc/rollout.cu).
 _MMA_ROWS = 16                # batch rows per tile: the MMA's M
@@ -474,13 +474,24 @@ def plan_grid(tables: RolloutTables, capacity, n_blocks: int | None = None
                        shares=shares)
 
 
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def blocks_per_sm(capacity, smem: int, n_sms: int) -> int:
+    """The occupancy a grid was planned at: blocks of ``smem`` bytes (the
+    grid's launched footprint) that one of the device's ``n_sms`` SMs
+    holds, by :func:`plan_grid`'s ``capacity``."""
+    return capacity(smem) // n_sms
+
+
 def _device_capacity(int8: bool, device: torch.device):
     """``capacity(smem)`` of :func:`plan_grid` for the rollout kernel on
     ``device``: the occupancy API's blocks per SM x the SM count, for int8
     the fewer of its two forms' instantiations (the form is chosen after
     the grid)."""
     lib = _cuda.LIBRARY.load()
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _sm_count(device)
     forms = ("mma", "lists") if int8 else ("fp32",)
 
     def per_sm(form: str, smem: int) -> int:
@@ -504,8 +515,9 @@ def rollout_grid(tables: RolloutTables, device: torch.device,
     key = (str(device), n_blocks)
     if key not in tables.grids:
         with torch.cuda.device(device):
-            grid = plan_grid(tables, _device_capacity(tables.int8, device),
-                             n_blocks)
+            capacity = _device_capacity(tables.int8, device)
+            grid = plan_grid(tables, capacity, n_blocks)
+            per_sm = blocks_per_sm(capacity, grid.smem, _sm_count(device))
         ops = (torch.as_tensor(grid.shares.blob, device=device),
                torch.as_tensor(grid.shares.meta, device=device))
         tables.grids[key] = (grid, ops)
@@ -514,7 +526,8 @@ def rollout_grid(tables: RolloutTables, device: torch.device,
                   share_bytes=grid.share_bytes, smem=grid.smem,
                   blob_bytes=int(grid.shares.blob.nbytes),
                   mm_terms=tables.n_matmul_terms, digits=tables.n_digits,
-                  form=grid.form, list_entries=grid.shares.entries)
+                  form=grid.form, list_entries=grid.shares.entries,
+                  blocks_per_sm=per_sm)
     return tables.grids[key]
 
 
@@ -531,6 +544,15 @@ def launch_counts(grid: RolloutGrid, steps: int, batch: int, b_tile: int
     streamed = 0 if grid.resident else (int(meta[:, 3].sum()) * steps
                                          * -(-batch // b_tile))
     return streamed, int(meta[:, 2].sum()) * steps * batch, steps * batch
+
+
+def io_macs(steps: int, batch: int, dim: int, in_dim: int, out_dim: int,
+            readout_steps: int) -> tuple[int, int]:
+    """The multiply-adds of one launch's dense input projection and
+    readout: ``(steps x batch rows x dim x I, readout steps x batch rows x
+    dim x O)``; the readout's is 0 in a launch without predictions
+    (``readout_steps`` 0)."""
+    return steps * batch * dim * in_dim, readout_steps * batch * dim * out_dim
 
 
 # -- readout ------------------------------------------------------------------
@@ -611,7 +633,9 @@ def _launch_rollout(counted, u_seq, tables, w_in, x0, w_out=None, *,
     computed inside it, counted on ``counted.fused_launches``;
     with metrics on, its :func:`launch_counts` too (product rows under the
     grid's form), and with predictions
-    its readout steps x batch rows under the grid's :func:`readout_path`).
+    its readout steps x batch rows under the grid's :func:`readout_path`;
+    the input projection's and the readout's multiply-adds by
+    :func:`io_macs`).
     The last step writes straight into the final-state buffer — the
     caller's carry when it donates one.  ``n_blocks`` sets the grid
     (default: :func:`plan_grid`'s choice); the entry points leave it to
@@ -624,11 +648,11 @@ def _launch_rollout(counted, u_seq, tables, w_in, x0, w_out=None, *,
     t_steps, b, i = u_seq.shape
     dim = x0.shape[1]
     o = w_out.shape[1] if want_preds else 0
+    n_out = t_steps // readout_every if want_preds else 0
     states = (torch.empty((t_steps, b, dim), device=dev)
               if want_states else None)
     preds = partial = None
     if want_preds:
-        n_out = t_steps // readout_every
         preds = torch.empty((n_out, b, o), device=dev)
         partial = torch.empty((n_out, grid.n_blocks, b, o), device=dev)
     final = None
@@ -661,10 +685,13 @@ def _launch_rollout(counted, u_seq, tables, w_in, x0, w_out=None, *,
         obs.inc("rollout_shiftadd_digits_total", digits, kernel=name)
         obs.inc("rollout_product_rows_total", rows, kernel=name,
                 form=grid.form)
+        macs_in, macs_out = io_macs(t_steps, b, dim, i, o, n_out)
+        obs.inc("rollout_io_macs_total", macs_in, kernel=name, part="input")
         if want_preds:
-            obs.inc("rollout_readout_rows_total",
-                    t_steps // readout_every * b, kernel=name,
+            obs.inc("rollout_readout_rows_total", n_out * b, kernel=name,
                     path=readout_path(grid.cw))
+            obs.inc("rollout_io_macs_total", macs_out, kernel=name,
+                    part="readout")
     return _pack(states, preds, final)
 
 

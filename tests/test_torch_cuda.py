@@ -581,6 +581,108 @@ def test_esn4096_counters_read_launch_counts(cuda):
     assert got == launch_counts(grid, 16, 2, 2) == (0, 0, 16 * 2)
 
 
+_KS = {}
+
+
+def _ks_op(cuda, dim):
+    """Pathak et al.'s Kuramoto-Sivashinsky reservoir's shape
+    (``esn9000-io64-csd``): 3 links a node, 64 inputs and 64 outputs,
+    int8-CSD, block 128; a seeded draw scaled near spectral radius 0.4.
+    No tile reaches the crossover: every nonzero's digits are shift-adds."""
+    if dim not in _KS:
+        rng = np.random.default_rng(34)
+        _KS[dim] = (FixedMatrix.compile(
+            random_sparse_matrix(dim, dim, 1 - 3 / dim, rng) * 0.4,
+            weight_bits=8, mode="csd", block=128, rng=rng),
+            rng.uniform(-0.5, 0.5, (64, dim)).astype(np.float32),
+            (rng.standard_normal((dim, 64)) / dim ** 0.5).astype(np.float32))
+    fm, w_in, w_out = _KS[dim]
+    op = SpecializedRollout(fm, w_in, mode="int8", w_out=w_out, device=cuda)
+    assert op.tables.n_matmul_terms == 0 and op.tables.n_digits > 0
+    return op
+
+
+@pytest.mark.parametrize("n_blocks", [None, 8])
+@pytest.mark.parametrize("batch", [1, 16])
+def test_ks_io64_matches_twin(cuda, batch, n_blocks):
+    """dim 1,000 with 64 inputs and 64 outputs on the default grid (128
+    blocks of 8 columns, the list form, the ``shuffle`` readout) and on
+    the grid of one block a column block (8 blocks of 128 columns: the
+    digit scatter with no tile, the ``shared`` readout, 24 pad columns in
+    the last block): B2 equals its plain twin bit for bit in states and
+    final state over T = 64, and its predictions equal the readout's
+    tree (``tree_readout``: each block's pairwise sum over its columns,
+    the blocks added in ascending order) over the twin's states, bit for
+    bit."""
+    from test_torch_esn9000 import tree_readout
+    op = _ks_op(cuda, 1000)
+    grid, _ = rollout_grid(op.tables, cuda, n_blocks)
+    assert (grid.n_blocks, grid.cw, grid.form) == (
+        (128, 8, "lists") if n_blocks is None else (8, 128, "mma"))
+    assert readout_path(grid.cw) == ("shuffle" if n_blocks is None
+                                     else "shared")
+    rng = np.random.default_rng(batch)
+    u = torch.as_tensor(rng.uniform(-1, 1, (64, batch, 64)),
+                        dtype=torch.float32, device=cuda)
+    x0 = torch.zeros((batch, 1000), device=cuda)
+    kw = dict(want_states=True, want_preds=True, want_final=True)
+    (s, p, f), n, ro = _run(specialized_rollout, op, u, x0,
+                            op._batch_tile(batch), 1, n_blocks=n_blocks, **kw)
+    assert (n, ro) == (1, 1)
+    ps, pp, pf = specialized_rollout_plain(
+        u, op.tables, op.w_in, x0, op.w_out, leak=op.leak, smax=op.smax,
+        recur_scale=op.recur_scale, **kw)
+    torch.cuda.synchronize()
+    assert s.abs().max().item() > 0.1
+    assert torch.equal(s, ps) and torch.equal(f, pf)
+    want = tree_readout(ps.cpu().numpy(), op.w_out.cpu().numpy(), grid.cw)
+    assert np.array_equal(p.cpu().numpy(), want)
+    assert (p - pp).abs().max().item() <= 1e-4
+
+
+def test_ks_published_grid_and_io_counters(cuda):
+    """At the published dim 9,000 the card plans 71 blocks of 128 columns,
+    one an SM, their digit shares resident, the dense form with no tile;
+    with ``obs`` on the grid's event says so, a launch adds
+    :func:`io_macs` to ``rollout_io_macs_total`` (input and readout) and
+    :func:`launch_counts`' digits, and B2 equals its plain twin bit for
+    bit over T = 8."""
+    from repro_torch import obs
+    from repro_torch.kernels.reservoir_rollout.reservoir_rollout import (
+        io_macs, launch_counts)
+    op = _ks_op(cuda, 9000)
+    u = torch.as_tensor(np.random.default_rng(9).uniform(-1, 1, (8, 2, 64)),
+                        dtype=torch.float32, device=cuda)
+    x0 = torch.zeros((2, 9000), device=cuda)
+    kw = dict(want_states=True, want_preds=True, want_final=False)
+    obs.configure()
+    try:
+        (s, p), _n, _ro = _run(specialized_rollout, op, u, x0, 2, 1, **kw)
+        torch.cuda.synchronize()
+        (ev,) = obs.events().events("rollout_grid")
+        grid, _ = rollout_grid(op.tables, u.device)
+        m = obs.metrics()
+        macs = tuple(m.get("rollout_io_macs_total").value(
+            kernel="specialized_rollout", part=part)
+            for part in ("input", "readout"))
+        digits = m.get("rollout_shiftadd_digits_total").value(
+            kernel="specialized_rollout")
+    finally:
+        obs.disable()
+    f = ev.fields
+    assert (f["n_blocks"], f["cw"], f["resident"], f["form"], f["mm_terms"],
+            f["blocks_per_sm"]) == (71, 128, True, "mma", 0, 1)
+    assert f["digits"] == op.tables.n_digits > 60_000
+    assert macs == io_macs(8, 2, 9000, 64, 64, 8) == (8 * 2 * 9000 * 64,) * 2
+    assert digits == launch_counts(grid, 8, 2, 2)[1] == (
+        8 * 2 * op.tables.n_digits)
+    ps, pp = specialized_rollout_plain(
+        u, op.tables, op.w_in, x0, op.w_out, leak=op.leak, smax=op.smax,
+        recur_scale=op.recur_scale, **kw)
+    assert torch.equal(s, ps)
+    assert (p - pp).abs().max().item() <= 1e-4
+
+
 # -- fixed-matrix kernels (B3, B4, B5) against their twins on the card --------
 def _fixed(dim_r, dim_c, sparsity, block, seed=0):
     rng = np.random.default_rng(seed)

@@ -282,6 +282,7 @@ def _fake_card(monkeypatch):
     monkeypatch.setattr(rr._cuda, "LIBRARY", Library())
     monkeypatch.setattr(rr, "_device_capacity", lambda int8, dev: (
         lambda smem: 132 if smem <= 227 * 1024 else 0))
+    monkeypatch.setattr(rr, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(torch.cuda, "device", contextlib.nullcontext)
     return rr
 
@@ -299,7 +300,8 @@ def _launch(rr, tables, t, b, **kw):
 @pytest.mark.parametrize("form", ["mma", "lists"])
 def test_rollout_grid_event_and_counters(monkeypatch, form):
     """One ``rollout_grid`` event per grid built, with the grid's
-    geometry, its form and list entries and the table's terms; each
+    geometry, its form and list entries, the table's terms and the
+    occupancy it was planned at (one block an SM on the stand-in); each
     launch adds what :func:`launch_counts` says to the three counters,
     under its kernel's name (product rows also under the form): digits
     scattered only by the dense form, steps x rows of the product by
@@ -318,7 +320,7 @@ def test_rollout_grid_event_and_counters(monkeypatch, form):
         resident=grid.resident, share_bytes=grid.share_bytes,
         smem=grid.smem, blob_bytes=grid.shares.blob.nbytes,
         mm_terms=tables.n_matmul_terms, digits=tables.n_digits, form=form,
-        list_entries=grid.shares.entries)
+        list_entries=grid.shares.entries, blocks_per_sm=1)
     assert (grid.shares.entries > 0) is (form == "lists")
     want = [a + b for a, b in zip(rr.launch_counts(grid, 5, 3, 3),
                                   rr.launch_counts(grid, 9, 20, 16))]
@@ -385,3 +387,23 @@ def test_readout_rows_counter_follows_cw(monkeypatch, n_blocks, cw, path):
     assert rows.value(kernel="specialized_rollout", path=path) == (
         12 // 4 * 3 + 5 * 20)
     assert rows.value() == 12 // 4 * 3 + 5 * 20
+
+
+def test_io_macs_counter_follows_io_macs(monkeypatch):
+    """``rollout_io_macs_total`` adds :func:`io_macs` per launch: the
+    input projection's steps x rows x dim x I under ``part="input"``
+    always, the readout's readout steps x rows x dim x O under
+    ``part="readout"`` only with predictions; nothing with ``obs`` off."""
+    rr = _fake_card(monkeypatch)
+    tables = _digit_tables()
+    _launch(rr, tables, 8, 3)                             # obs off
+    obs.configure()
+    _launch(rr, tables, 12, 3, readout_every=4)
+    _launch(rr, tables, 6, 2, want_preds=False, want_final=True)
+    macs = obs.metrics().get("rollout_io_macs_total")
+    got = {part: macs.value(kernel="specialized_rollout", part=part)
+           for part in ("input", "readout")}
+    want_in = rr.io_macs(12, 3, 256, 1, 1, 3)[0] + rr.io_macs(
+        6, 2, 256, 1, 1, 0)[0]
+    assert got == {"input": want_in, "readout": 12 // 4 * 3 * 256}
+    assert want_in == (12 * 3 + 6 * 2) * 256
