@@ -13,6 +13,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    shift-add digits, over {fp32, int8} x {resident, pipelined} x batch
    {3, 16}, with readout and final state (B2 takes no band budget: its
    shares must equal, byte for byte, those of each regime's lowering);
+   then (``ks_twins``) B2 at ``esn9000-io64-csd``'s shape (dim 9,000, 3
+   links a node, 64 inputs and outputs, int8-CSD) on its default grid of
+   71 blocks of 128 columns, whose ``shared`` readout the other cases
+   do not reach, at batch 1, 16 and 20 (two batch tiles);
 3. drives the main serving path at ``LARGE_1024`` (dim 1024, int8-CSD):
    ``init_esn`` -> ``fit_readout`` -> an ``AsyncReservoirServer`` with 16
    slots answering a burst of 24 requests in 32-step chunks (five bursts,
@@ -570,6 +574,62 @@ class Smoke:
                             f" sa_digits={b2.tables.n_digits}")
                         cases += 1
         print(f"twin cases: {cases}")
+
+    def ks_twins(self):
+        """B2 against its twin at ``esn9000-io64-csd``'s shape: dim 9,000,
+        3 links a node, 64 inputs and 64 outputs, int8-CSD, block 128, on
+        the default grid (71 blocks of 128 columns, the ``shared``
+        readout).  Batch 1 and 16 sum the one tile's readout in the step
+        barrier's wait; batch 20 is two batch tiles, the first summed
+        before the barrier.  T = 16: states and final state bit for bit,
+        predictions within READOUT_TOL."""
+        torch = self.torch
+        from repro_torch.core.sparse import FixedMatrix, random_sparse_matrix
+        from repro_torch.kernels.reservoir_rollout.reservoir_rollout import (
+            readout_path, rollout_grid)
+        from repro_torch.kernels.reservoir_rollout.specialized import (
+            SpecializedRollout, specialized_rollout_plain)
+        dim, io = 9000, 64
+        rng = np.random.default_rng(34)
+        t0 = time.perf_counter()
+        fm = FixedMatrix.compile(
+            random_sparse_matrix(dim, dim, 1 - 3 / dim, rng) * 0.4,
+            weight_bits=8, mode="csd", block=128, rng=rng)
+        w_in = rng.uniform(-0.5, 0.5, (io, dim)).astype(np.float32)
+        w_out = (rng.standard_normal((dim, io)) / dim ** 0.5
+                 ).astype(np.float32)
+        op = SpecializedRollout(fm, w_in, mode="int8", w_out=w_out,
+                                device=self.dev)
+        grid, _ = rollout_grid(op.tables, self.dev)
+        path = readout_path(grid.cw)
+        print(f"dim 9,000 int8-CSD: compiled in "
+              f"{time.perf_counter() - t0:.1f} s, {op.tables.n_digits} "
+              f"digits, grid {grid.n_blocks} x {grid.cw}, readout {path}")
+        self.check((grid.n_blocks, grid.cw, path) == (71, 128, "shared"),
+                   f"dim 9,000: grid {grid.n_blocks} x {grid.cw} {path}, "
+                   "not 71 x 128 shared")
+        self.check(op._batch_tile(20) < 20,
+                   "dim 9,000: batch 20 is one batch tile")
+        kw = dict(want_states=True, want_preds=True, want_final=True)
+        gen = torch.Generator(device="cpu").manual_seed(9000)
+        for batch in (1, 16, 20):
+            u = torch.randn((16, batch, io), generator=gen).to(self.dev)
+            x0 = (0.5 * torch.randn((batch, dim), generator=gen)).to(self.dev)
+            s, p, f = op(u, x0, **kw)
+            ps, pp, pf = specialized_rollout_plain(
+                u, op.tables, op.w_in, x0, op.w_out, leak=op.leak,
+                smax=op.smax, recur_scale=op.recur_scale, readout_every=1,
+                **kw)
+            torch.cuda.synchronize()
+            ds, df, dp = maxdiff(s, ps), maxdiff(f, pf), maxdiff(p, pp)
+            self.note_err("specialized_rollout", "int8", max(ds, df))
+            self.note_err("rollout_readout", "int8", dp)
+            tag = f"dim 9,000 b{batch} (batch tile {op._batch_tile(batch)})"
+            self.check(ds == 0.0 and df == 0.0 and dp <= READOUT_TOL,
+                       f"specialized_rollout vs twin {tag}: states {ds:.3g} "
+                       f"final {df:.3g} preds {dp:.3g}")
+            print(f"  {tag}: states {ds:.3g}, final {df:.3g}, preds "
+                  f"{dp:.3g} (tolerance {READOUT_TOL:g})")
 
     def _twin_case(self, torch, b1, b2, plain1, plain2, kmode, batch, tag):
         gen = torch.Generator(device="cpu").manual_seed(batch)
@@ -3730,7 +3790,7 @@ def main() -> int:
     # its profiles of the torch backend's many small launches came back
     # empty), and lm_serve after every profile: serve_layer's first
     # profile after lm_serve recorded no launch on the H100
-    for phase in (smoke.build, smoke.twins, smoke.main_path,
+    for phase in (smoke.build, smoke.twins, smoke.ks_twins, smoke.main_path,
                   smoke.baseline_twins, smoke.fixed_matrix, smoke.times,
                   smoke.fixed_times, smoke.autotune, smoke.sharded,
                   smoke.serve_layer, smoke.lm_serve, smoke.lm_blocks,

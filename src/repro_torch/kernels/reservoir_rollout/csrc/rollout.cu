@@ -99,13 +99,20 @@
 //     arrival at the step barrier and its wait, off the step's critical
 //     path (for the last batch tile; on the last step before arriving).
 //     No __syncthreads of its own and no read-back of xkeep.  Wider slices
-//     (cw > 32, small explicit grids) run the same tree after one
-//     __syncthreads, 32 columns per lane group and then over the groups.
-//     The order depends on cw alone -- never on the batch, the tile, T or
-//     chunking.  Lane 0 of the row writes the partial into a (T/k, blocks,
-//     B, O) scratch; after the last barrier all threads reduce it over the
-//     blocks in ascending order, so predictions are the same from run to
-//     run, at any batch and for any T or chunking.
+//     (cw > 32 or not dividing 32: dim 9,000's 71 blocks of 128 columns,
+//     small explicit grids) run the same tree with lanes over outputs
+//     (wide_readout): a thread owns one (output, 32-column chunk), reads
+//     the chunk's 32 weights from W_out's rows (a warp's loads coalesced
+//     over consecutive outputs) once per batch tile into registers, sums
+//     each row's 32 leaves as the unrolled pairwise tree, and the chunks'
+//     sums meet by shuffles across lane groups; the last tile's runs
+//     between the arrival and the wait too, the others after one
+//     __syncthreads.  The order depends on cw alone -- never on the
+//     batch, the tile, T or chunking.  The row's first lane writes the
+//     partial into a (T/k, blocks, B, O) scratch; after the last barrier
+//     all threads reduce it over the blocks in ascending order, so
+//     predictions are the same from run to run, at any batch and for any
+//     T or chunking.
 //
 // Bound at the LARGE_1024 serve shape (B = 16 slots, R = 1024, int8-CSD,
 // 64 folded 128x128 tiles): one step is 16 * 1024 * 1024 int8 MACs, about
@@ -205,7 +212,8 @@ __device__ __forceinline__ void flush(int* acc_s, int cw, int g, int lane,
 
 // The readout's tree over a block's cw columns stays inside a row's lane
 // group when the row's columns are whole lane groups of one warp (cw
-// divides 32); otherwise a warp per row reads it from shared memory
+// divides 32); otherwise a lane per (output, 32-column chunk) sums its
+// chunk of the row, read from shared memory, in registers (wide_readout)
 // ("shuffle" / "shared" of readout_path in reservoir_rollout.py).
 __device__ __forceinline__ bool shuffle_readout(int cw) {
   return cw <= 32 && 32 % cw == 0;
@@ -410,19 +418,88 @@ __device__ __forceinline__ void wait_for(const unsigned long long* count,
   } while (seen < n);
 }
 
+// The wide-slice readout (the "shared" path): one batch tile's partials
+// over a block's cw columns, cw > 32 or not dividing 32, from the tile's
+// x(n) in xt after a __syncthreads of the block (tile_readout's, or the
+// one before the step barrier's arrival).  A lane owns one (output o,
+// 32-column chunk c) unit: with width the power of two at or above the
+// slice's chunks, a warp's lanes are width chunks x G = 32 / width
+// consecutive outputs, lane c * G + g, so a weight load reads G
+// consecutive floats of one row of W_out (dim, O).  The lane reads its
+// chunk's 32 weights once for the tile and keeps them in registers for
+// every row it sums; a leaf is x(n, j) * W_out[j, o], and the 32 leaves
+// meet in the pairwise tree unrolled in registers (adjacent pairs first:
+// lane_tree<32>'s bits, IEEE addition commutes).  Past dim or cw a weight
+// is read as +0 and x(n) is +0 (a pad column's, or a quad past the row),
+// so those leaves are the tree's +0 padding without a test of their own.
+// The chunks' sums (0 for c >= chunks) meet in the same tree by shuffles
+// at lane distances G, 2 G, ..., and lane c = 0 writes the row's partial.
+// So cw <= 1,024, 32 chunks of a warp (the launch refuses wider slices).
+// A warp takes (output group, row slice) tasks; with few output groups
+// the rows split over the warps.  Inlined: as a call it costs the kernels
+// 60-100 registers, and the int8 ones their second block an SM.
+__device__ __forceinline__ void wide_readout(const float* __restrict__ w_out,
+                                             int out_dim, int dim, int cw,
+                                             float* part, const float* xt,
+                                             int bt, int b0, int c0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int lg = 5;                               // G = 1 << lg outputs a task
+  while (lg > 0 && (32 << (5 - lg)) < cw) --lg;
+  const int c = lane >> lg;
+  const int og = lane & ((1 << lg) - 1);
+  // the lane's valid leaves: columns 32c .. of the slice, below cw and dim
+  const int n_valid = min(cw, dim - c0) - 32 * c;
+  const int n_groups = (out_dim + (1 << lg) - 1) >> lg;
+  const int n_slices = max(1, min(bt, kWarps / n_groups));
+  for (int task = warp; task < n_groups * n_slices; task += kWarps) {
+    const int grp = task / n_slices;
+    const int o = (grp << lg) + og;
+    const int n_w = o < out_dim ? n_valid : 0;     // weights to read
+    const float* wp = w_out + (size_t)(c0 + 32 * c) * out_dim + o;
+    // one 32-bit offset a weight: 32 O floats stay below 2^31
+    float w[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      w[i] = i < n_w ? __ldg(wp + i * out_dim) : 0.0f;
+    }
+    for (int r = task - grp * n_slices; r < bt; r += n_slices) {
+      // cw is a multiple of 8, so a chunk's quad below cw lies inside it
+      const float4* x4 =
+          reinterpret_cast<const float4*>(xt + r * cw + 32 * c);
+      float v[32];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float4 x = 4 * k < n_valid ? x4[k] : make_float4(0, 0, 0, 0);
+        v[4 * k] = __fmul_rn(x.x, w[4 * k]);
+        v[4 * k + 1] = __fmul_rn(x.y, w[4 * k + 1]);
+        v[4 * k + 2] = __fmul_rn(x.z, w[4 * k + 2]);
+        v[4 * k + 3] = __fmul_rn(x.w, w[4 * k + 3]);
+      }
+#pragma unroll
+      for (int s = 1; s < 32; s <<= 1) {
+#pragma unroll
+        for (int i = 0; i < 32; i += 2 * s) v[i] = __fadd_rn(v[i], v[i + s]);
+      }
+      float y = v[0];
+      for (int s = 1 << lg; s < 32; s <<= 1) {
+        y = __fadd_rn(y, __shfl_xor_sync(0xffffffffu, y, s));
+      }
+      if (c == 0 && o < out_dim) part[(size_t)(b0 + r) * out_dim + o] = y;
+    }
+  }
+}
+
 // One batch tile's partial readout, rows b0 .. b0 + bt - 1: x(n) . W_out
 // over the block's cw columns starting at c0, from the tile's x(n) in xt
 // (bt x cw; a pad column holds 0 and adds 0), into part (B, O).  Shuffle
 // path: thread idx reads back the x(n) it wrote and a row's cw lanes meet
-// in lane_tree.  Shared path: after one __syncthreads a warp per (row,
-// output) runs the same tree, lane c over columns 32c .. 32c + 31, then
-// over the lanes' sums.
+// in lane_tree.  Shared path: after one __syncthreads, wide_readout.
 __device__ __forceinline__ void tile_readout(const Params& p, float* part,
                                              const float* xt, int bt, int b0,
                                              int c0, bool shuffle) {
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
   if (shuffle) {
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
     for (int idx = tid; idx < bt * p.cw; idx += kThreads) {
       // the pass's live lanes are whole rows: bt * cw - (idx - lane) is a
       // multiple of cw
@@ -444,27 +521,7 @@ __device__ __forceinline__ void tile_readout(const Params& p, float* part,
     return;
   }
   __syncthreads();    // every thread's x(n) is in xt
-  const int chunks = (p.cw + 31) >> 5;
-  int width = 1;
-  while (width < chunks) width <<= 1;
-  for (int task = warp; task < bt * p.out_dim; task += kWarps) {
-    const int r = task / p.out_dim;
-    const int o = task - r * p.out_dim;
-    float sum = 0.0f;
-    for (int c = 0; c < chunks; ++c) {
-      const int j = c * 32 + lane;
-      const int col = c0 + j;
-      const float v =
-          j < p.cw && col < p.dim
-              ? __fmul_rn(xt[r * p.cw + j],
-                          __ldg(p.w_out + (size_t)col * p.out_dim + o))
-              : 0.0f;
-      const float s = lane_tree<32>(v, 0xffffffffu);
-      if (lane == c) sum = s;
-    }
-    sum = lane_tree(sum, 0xffffffffu, width);
-    if (lane == 0) part[(size_t)(b0 + r) * p.out_dim + o] = sum;
-  }
+  wide_readout(p.w_out, p.out_dim, p.dim, p.cw, part, xt, bt, b0, c0);
 }
 
 // INT8 && LISTS: the int8 list form (product_lists); INT8 alone: folded
@@ -546,10 +603,10 @@ rollout_kernel(const Params p) {
                                              * gridDim.x + blk) *
                                             p.batch * p.out_dim
                           : nullptr;
-    // the shuffle path sums the last tile's rows between the block's
-    // arrival at the step barrier and its wait; on the last step before
-    // arriving, so the last barrier orders them before the blocks' sum
-    const bool defer = readout && shuffle && t + 1 < p.steps;
+    // the last tile's rows are summed between the block's arrival at the
+    // step barrier and its wait; on the last step before arriving, so the
+    // last barrier orders them before the blocks' sum
+    const bool defer = readout && t + 1 < p.steps;
     for (int b0 = 0; b0 < p.batch; b0 += p.b_tile) {
       const int bt = min(p.b_tile, p.batch - b0);
       __syncthreads();      // the previous tile is done with xs and acc_s
@@ -717,7 +774,16 @@ rollout_kernel(const Params p) {
       if (tid == 0) arrive(arrived);
       if (defer) {
         const int b0 = (p.batch - 1) / p.b_tile * p.b_tile;
-        tile_readout(p, part, prev_s, p.batch - b0, b0, c0, true);
+        if (shuffle) {
+          tile_readout(p, part, prev_s, p.batch - b0, b0, c0, true);
+        } else {
+          // the __syncthreads before the arrival made x(n) visible, so not
+          // tile_readout, whose shared branch syncs first (one call here,
+          // that sync moved to the other call site, spills 84 bytes in
+          // the list kernel under ptxas)
+          wide_readout(p.w_out, p.out_dim, p.dim, p.cw, part, prev_s,
+                       p.batch - b0, b0, c0);
+        }
       }
       if (tid == 0) wait_for(arrived, (unsigned long long)(t + 1) * gridDim.x);
       __syncthreads();

@@ -59,6 +59,7 @@ _MMA_DEPTH = 32               # rows per MMA: K
 _BAR_BYTES = 16               # the mbarrier at the head of shared memory
 _ALIGN = 16                   # bulk copies move multiples of 16 bytes
 _MAX_DIGIT_COLS = 1 << 8      # a digit word's column field: bits 16-23
+_MAX_READOUT_COLS = 32 * 32   # the shared readout: a warp's lanes, 32 each
 _THREADS = 256                # threads per block
 _WARPS = _THREADS // 32
 _LIST_ROW_BITS = 16           # a list word: state row in bits 0-15, the
@@ -66,11 +67,11 @@ _LIST_WEIGHT_MAX = 1 << 15    # signed weight in bits 16-31
 # The list form is taken when the longest column's entries per lane are at
 # most this many times the dense form's MMA units per warp (at least one),
 # both the largest over the grid's blocks.  From B2 alone on the card at
-# 1-25 % nonzeros, dims 1,024 and 4,096, batches 1, 4 and 16 (PERF.md §5,
-# "B2 alone by form"): the lists were at least as fast at every batch at
-# ratios 0.62, 1.0 (twice) and 2.12, and slower at batch 16 at 2.0 (dim
-# 1,024, 2 %) and above; between 1.0 and 2.0, so every table that takes
-# the lists is at least as fast at every batch measured.
+# 1-25 % nonzeros, dims 1,024 and 4,096, batches 1, 4 and 16 (the readings
+# in tools/probe_rollout_forms.py): the lists were at least as fast at
+# every batch at ratios 0.62, 1.0 (twice) and 2.12, and slower at batch 16
+# at 2.0 (dim 1,024, 2 %) and above; between 1.0 and 2.0, so every table
+# that takes the lists is at least as fast at every batch measured.
 _LISTS_PER_MMA_UNIT = 1.5
 _FORMS = {"fp32": 0, "mma": 1, "lists": 2}      # rollout_run's `form`
 
@@ -407,10 +408,13 @@ def _f32_warps(cw: int) -> int:
 def readout_path(cw: int) -> str:
     """How the kernel sums a block's partial readout over its ``cw``
     columns (``shuffle_readout`` in ``csrc/rollout.cu``): ``"shuffle"``,
-    by shuffles within a row's lanes, in the step barrier's wait, when
-    ``cw`` divides 32; ``"shared"``, a warp per row reading the row from
-    shared memory, otherwise.  Both run one pairwise tree over column
-    index, so the sum order depends on ``cw`` alone."""
+    by shuffles within a row's lanes, when ``cw`` divides 32;
+    ``"shared"`` otherwise: a thread per (output, 32-column chunk) reads
+    the row from shared memory and its chunk's weights from coalesced
+    rows of ``W_out``, sums the chunk in registers, and the chunks meet by
+    shuffles.  Both run one pairwise tree over column index, so the sum
+    order depends on ``cw`` alone, and both sum the last batch tile's rows
+    in the step barrier's wait."""
     return "shuffle" if cw <= 32 and 32 % cw == 0 else "shared"
 
 
@@ -645,6 +649,10 @@ def _launch_rollout(counted, u_seq, tables, w_in, x0, w_out=None, *,
                    want_preds, readout_every)
     dev = u_seq.device
     grid, (blob, meta) = rollout_grid(tables, dev, n_blocks)
+    if want_preds and grid.cw > _MAX_READOUT_COLS:
+        raise ValueError(f"the readout sums slices of at most "
+                         f"{_MAX_READOUT_COLS} columns, not {grid.cw}; "
+                         "use more thread blocks")
     t_steps, b, i = u_seq.shape
     dim = x0.shape[1]
     o = w_out.shape[1] if want_preds else 0

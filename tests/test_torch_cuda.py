@@ -584,11 +584,13 @@ def test_esn4096_counters_read_launch_counts(cuda):
 _KS = {}
 
 
-def _ks_op(cuda, dim):
+def _ks_op(cuda, dim, out_dim=64):
     """Pathak et al.'s Kuramoto-Sivashinsky reservoir's shape
     (``esn9000-io64-csd``): 3 links a node, 64 inputs and 64 outputs,
     int8-CSD, block 128; a seeded draw scaled near spectral radius 0.4.
-    No tile reaches the crossover: every nonzero's digits are shift-adds."""
+    No tile reaches the crossover: every nonzero's digits are shift-adds.
+    ``out_dim`` other than 64 takes the first outputs of a seeded
+    (dim, 100) readout."""
     if dim not in _KS:
         rng = np.random.default_rng(34)
         _KS[dim] = (FixedMatrix.compile(
@@ -597,6 +599,10 @@ def _ks_op(cuda, dim):
             rng.uniform(-0.5, 0.5, (64, dim)).astype(np.float32),
             (rng.standard_normal((dim, 64)) / dim ** 0.5).astype(np.float32))
     fm, w_in, w_out = _KS[dim]
+    if out_dim != 64:
+        w_out = np.ascontiguousarray(
+            (np.random.default_rng(35).standard_normal((dim, 100))
+             / dim ** 0.5).astype(np.float32)[:, :out_dim])
     op = SpecializedRollout(fm, w_in, mode="int8", w_out=w_out, device=cuda)
     assert op.tables.n_matmul_terms == 0 and op.tables.n_digits > 0
     return op
@@ -640,13 +646,93 @@ def test_ks_io64_matches_twin(cuda, batch, n_blocks):
     assert (p - pp).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("out_dim", [1, 3, 64, 100])
+@pytest.mark.parametrize("batch", [1, 4, 16, 20])
+@pytest.mark.parametrize("n_blocks,cw", [(8, 128), (16, 64)])
+def test_ks_wide_readout_matches_the_tree(cuda, n_blocks, cw, batch,
+                                          out_dim):
+    """The ``shared`` readout (a lane per (output, 32-column chunk)) on
+    explicit grids of 128- and 64-column slices at dim 1,000 (24 pad
+    columns in the last block), batch tiles of 1, 4 and 16 rows (batch 20:
+    a tile of 16 summed before the step barrier's arrival, one of 4 after
+    it) and 1, 3, 64 or 100 outputs: B2's states equal its plain twin's
+    bit for bit over T = 64, and its predictions equal ``tree_readout``
+    over the twin's states bit for bit."""
+    from test_torch_esn9000 import tree_readout
+    op = _ks_op(cuda, 1000, out_dim)
+    grid, _ = rollout_grid(op.tables, cuda, n_blocks)
+    assert grid.cw == cw and readout_path(cw) == "shared"
+    rng = np.random.default_rng(batch * 1000 + out_dim)
+    u = torch.as_tensor(rng.uniform(-1, 1, (64, batch, 64)),
+                        dtype=torch.float32, device=cuda)
+    x0 = torch.zeros((batch, 1000), device=cuda)
+    kw = dict(want_states=True, want_preds=True, want_final=False)
+    (s, p), n, ro = _run(specialized_rollout, op, u, x0, min(batch, 16), 1,
+                         n_blocks=n_blocks, **kw)
+    assert (n, ro) == (1, 1)
+    ps, pp = specialized_rollout_plain(
+        u, op.tables, op.w_in, x0, op.w_out, leak=op.leak, smax=op.smax,
+        recur_scale=op.recur_scale, **kw)
+    torch.cuda.synchronize()
+    assert p.shape == (64, batch, out_dim) and s.abs().max().item() > 0.1
+    assert torch.equal(s, ps)
+    want = tree_readout(ps.cpu().numpy(), op.w_out.cpu().numpy(), cw)
+    assert np.array_equal(p.cpu().numpy().view(np.uint32),
+                          want.view(np.uint32))
+    assert (p - pp).abs().max().item() <= 1e-4
+
+
+def test_wide_readout_at_its_widest_slice(cuda):
+    """fp32 at dim 1,056 in one column block: two thread blocks of 528
+    columns (17 chunks, a warp's 32 lanes all one output's) give
+    predictions equal to ``tree_readout`` over B2's own states bit for
+    bit, each block's tree zero-padded to 1,024 leaves; one block of all
+    1,056 columns is wider than a warp's chunks, and the launch refuses it
+    before it runs."""
+    from test_torch_esn9000 import tree_readout
+    dim, cw = 1056, 528
+    rng = np.random.default_rng(35)
+    fm = FixedMatrix.compile(random_sparse_matrix(dim, dim, 0.99, rng)
+                             * 0.05, weight_bits=8, mode="csd", block=dim,
+                             rng=rng)
+    w_in = rng.uniform(-0.5, 0.5, (3, dim)).astype(np.float32)
+    w_out = (rng.standard_normal((dim, 3)) / dim ** 0.5).astype(np.float32)
+    op = SpecializedRollout(fm, w_in, mode="fp32", w_out=w_out, device=cuda)
+    grid, _ = rollout_grid(op.tables, cuda, 2)
+    assert grid.cw == cw and readout_path(cw) == "shared"
+    u = torch.as_tensor(rng.uniform(-1, 1, (16, 4, 3)), dtype=torch.float32,
+                        device=cuda)
+    x0 = torch.zeros((4, dim), device=cuda)
+    kw = dict(want_states=True, want_preds=True, want_final=False)
+    (s, p), n, ro = _run(specialized_rollout, op, u, x0, 4, 1, n_blocks=2,
+                         **kw)
+    torch.cuda.synchronize()
+    assert (n, ro) == (1, 1) and s.abs().max().item() > 0.1
+    # each block's columns at the head of 1,024 (pad columns hold 0)
+    xs = np.zeros((16, 4, 2048), np.float32)
+    ws = np.zeros((2048, 3), np.float32)
+    for k in range(2):
+        xs[:, :, 1024 * k:1024 * k + cw] = s.cpu().numpy()[:, :, cw * k:
+                                                            cw * (k + 1)]
+        ws[1024 * k:1024 * k + cw] = w_out[cw * k:cw * (k + 1)]
+    want = tree_readout(xs, ws, 1024)
+    assert np.array_equal(p.cpu().numpy().view(np.uint32),
+                          want.view(np.uint32))
+    before = specialized_rollout.launches
+    with pytest.raises(ValueError, match="at most 1024 columns"):
+        _run(specialized_rollout, op, u, x0, 4, 1, n_blocks=1, **kw)
+    assert specialized_rollout.launches == before
+
+
 def test_ks_published_grid_and_io_counters(cuda):
     """At the published dim 9,000 the card plans 71 blocks of 128 columns,
     one an SM, their digit shares resident, the dense form with no tile;
     with ``obs`` on the grid's event says so, a launch adds
     :func:`io_macs` to ``rollout_io_macs_total`` (input and readout) and
     :func:`launch_counts`' digits, and B2 equals its plain twin bit for
-    bit over T = 8."""
+    bit over T = 8, its predictions ``tree_readout`` over the twin's
+    states bit for bit."""
+    from test_torch_esn9000 import tree_readout
     from repro_torch import obs
     from repro_torch.kernels.reservoir_rollout.reservoir_rollout import (
         io_macs, launch_counts)
@@ -680,6 +766,9 @@ def test_ks_published_grid_and_io_counters(cuda):
         u, op.tables, op.w_in, x0, op.w_out, leak=op.leak, smax=op.smax,
         recur_scale=op.recur_scale, **kw)
     assert torch.equal(s, ps)
+    want = tree_readout(ps.cpu().numpy(), op.w_out.cpu().numpy(), grid.cw)
+    assert np.array_equal(p.cpu().numpy().view(np.uint32),
+                          want.view(np.uint32))
     assert (p - pp).abs().max().item() <= 1e-4
 
 

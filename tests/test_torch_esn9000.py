@@ -79,6 +79,71 @@ def tree_readout(states: np.ndarray, w_out: np.ndarray, cw: int
     return out.reshape(t, b, -1)
 
 
+def lane_readout(states: np.ndarray, w_out: np.ndarray, cw: int,
+                 b_tile: int, warps: int = 8) -> np.ndarray:
+    """The ``shared`` readout as ``wide_readout`` in ``csrc/rollout.cu``
+    lays it out, in float32.  Each step's rows go in batch tiles of
+    ``b_tile``; in block k a warp's lane is c * G + g over chunk c and
+    G = 32 / width consecutive outputs (width the power of two at or above
+    the slice's chunks); a task is an (output group, row slice), the rows
+    split over ``warps`` / groups slices where the groups leave warps
+    free.  The lane reads its chunk's 32 weights (0 past ``cw``, ``dim``
+    or the outputs), forms each row's 32 leaves from the row's quads of
+    x(n) (0 past the slice's valid columns) and sums them pairwise in
+    registers; the chunks' sums meet by xor shuffles at distances G, 2 G,
+    ..., 16; lane c = 0 writes the row's partial, which must be written
+    once.  The blocks' partials add in ascending block order."""
+    t, b, dim = states.shape
+    out_dim = w_out.shape[1]
+    x = states.astype(np.float32)
+    w_out = w_out.astype(np.float32)
+    lg = 5
+    while lg > 0 and (32 << (5 - lg)) < cw:
+        lg -= 1
+    lanes = np.arange(32)
+    c, og = lanes >> lg, lanes & ((1 << lg) - 1)
+    n_groups = -(-out_dim // (1 << lg))
+    out = None
+    for c0 in range(0, dim, cw):
+        n_valid = np.minimum(cw, dim - c0) - 32 * c                 # (32,)
+        xt = np.zeros((t, b, cw + 32), np.float32)     # pad columns 0
+        xt[:, :, :min(cw, dim - c0)] = x[:, :, c0:c0 + cw]
+        part = np.full((t, b, out_dim), np.nan, np.float32)
+        for b0 in range(0, b, b_tile):
+            bt = min(b_tile, b - b0)
+            n_slices = max(1, min(bt, warps // n_groups))
+            for task in range(n_groups * n_slices):
+                grp = task // n_slices
+                o = (grp << lg) + og
+                n_w = np.where(o < out_dim, n_valid, 0)
+                i = np.arange(32)
+                rows = c0 + 32 * c[:, None] + i
+                w = np.where(i < n_w[:, None],
+                             w_out[np.minimum(rows, dim - 1),
+                                   np.minimum(o, out_dim - 1)[:, None]],
+                             np.float32(0))                         # (32, 32)
+                r = np.arange(task - grp * n_slices, bt, n_slices)
+                quad = 4 * (i // 4) < n_valid[:, None]              # (32, 32)
+                cols = np.minimum(32 * c[:, None] + i, cw + 31)
+                xv = np.where(quad, xt[:, b0 + r][:, :, cols],
+                              np.float32(0))              # (t, rows, 32, 32)
+                v = xv * w
+                while v.shape[-1] > 1:
+                    v = v[..., 0::2] + v[..., 1::2]
+                y = v[..., 0]                                   # (t, rows, 32)
+                s = 1 << lg
+                while s < 32:
+                    y = y + y[..., lanes ^ s]
+                    s <<= 1
+                keep = (c == 0) & (o < out_dim)
+                dst = part[:, b0 + r][:, :, o[keep]]
+                assert np.isnan(dst).all(), "a partial written twice"
+                part[:, (b0 + r)[:, None], o[keep]] = y[..., keep]
+        assert not np.isnan(part).any(), "a partial never written"
+        out = part if out is None else out + part
+    return out
+
+
 @pytest.fixture(scope="module")
 def cfg():
     c = json.loads(CONFIG.read_text())
@@ -289,3 +354,36 @@ def test_blocks_per_sm(smem, per_sm):
     """The occupancy a grid is planned at: the capacity's blocks over the
     SM count."""
     assert blocks_per_sm(h100_capacity, smem, 132) == per_sm
+
+
+@pytest.mark.parametrize("out_dim", [1, 3, 64, 100])
+@pytest.mark.parametrize("cw", [64, 128, 256])
+def test_wide_readout_lanes_keep_the_tree_order(cw, out_dim):
+    """The ``shared`` readout's lanes as the kernel lays them out -- 32
+    leaves summed pairwise in registers, then the chunks' sums zero-padded
+    to a power of two and summed pairwise by shuffles, each (row, output)
+    written once, over batch tiles of 16 and 4 rows -- are
+    ``tree_readout``'s bit for bit, over seeded float32 states and weights
+    with +-0 among them and pad columns in the last block; a left-to-right
+    sum of each block's columns is not."""
+    rng = np.random.default_rng(cw * 1000 + out_dim)
+    dim = 3 * cw - 24                    # 24 pad columns in the last block
+    states = rng.standard_normal((3, 20, dim)).astype(np.float32)
+    w_out = (rng.standard_normal((dim, out_dim)) / dim ** 0.5
+             ).astype(np.float32)
+    states[rng.random(states.shape) < 0.05] = 0.0
+    states[rng.random(states.shape) < 0.05] = -0.0
+    w_out[rng.random(w_out.shape) < 0.05] = -0.0
+    states[0, 0] = -0.0                  # a row of -0 leaves and +0 pads
+    got = lane_readout(states, w_out, cw, 16)
+    want = tree_readout(states, w_out, cw)
+    assert got.dtype == want.dtype == np.float32
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    x = states.reshape(-1, dim)
+    seq = None
+    for c0 in range(0, dim, cw):
+        part = x[:, c0, None] * w_out[c0]
+        for j in range(c0 + 1, min(dim, c0 + cw)):
+            part = part + x[:, j, None] * w_out[j]
+        seq = part if seq is None else seq + part
+    assert not np.array_equal(seq, want.reshape(-1, out_dim))

@@ -23,6 +23,26 @@ the µs a step of each form is the mean of its two readings.  One JSON line
 per (dim, density, batch) with the card's name and power limit: the grid,
 the longest column's entries per lane, the dense form's MMA units per
 warp, their ratio, and both forms' µs a step.  Exits 2 without a card.
+
+Readings on an NVIDIA H100 80GB HBM3 at 700 W (torch 2.11.0+cu128), µs a
+step, dense / lists; the ratio (entries / units) is what
+``_LISTS_PER_MMA_UNIT`` bounds:
+
+    dim, nz     ratio       batch 1       batch 4       batch 16
+    1,024,  1 % 1/1 (1.0)   3.420/3.064   3.509/3.123   4.348/3.645
+    1,024,  2 % 2/1 (2.0)   3.416/3.087   3.459/3.273   3.702/3.798
+    1,024,  5 % 3/1 (3.0)   3.235/3.137   3.211/3.309   3.422/3.956
+    1,024, 10 % 5/1 (5.0)   3.216/3.072   3.303/3.427   3.408/4.244
+    1,024, 25 % 10/1 (10.0) 3.228/3.189   3.425/3.629   3.388/4.919
+    4,096,  1 % 5/8 (0.62)  10.124/3.212  13.569/4.857  27.237/7.404
+    4,096,  2 % 8/8 (1.0)   8.721/3.323   10.446/5.145  13.565/8.037
+    4,096,  5 % 17/8 (2.12) 8.695/3.783   9.588/5.618   11.420/10.975
+    4,096, 10 % 30/8 (3.75) 8.434/3.724   9.671/6.345   11.332/14.289
+    4,096, 25 % 71/8 (8.88) 8.440/6.960   9.656/10.057  11.493/24.638
+
+The lists won every batch at ratios 0.62, 1.0 and 2.12 and lost at batch 16
+from 2.0 at dim 1,024, so a bound of 1.5 takes them only where they were at
+least as fast at every batch measured; one ratio does not order the dims.
 """
 
 from __future__ import annotations
